@@ -73,6 +73,9 @@ def main(argv=None) -> int:
     sp.add_argument("--nprobe", type=int, default=None)
     args = ap.parse_args(argv)
 
+    from cloudvectordb_tpu.utils.runtime import enable_compile_cache
+
+    enable_compile_cache()
     if args.debug:
         import jax
 

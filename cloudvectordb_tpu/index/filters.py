@@ -1,8 +1,8 @@
 """Predicate filters for filtered ANN search (the IDSelector analog —
 multi-tenant serving, soft deletes, attribute pre-filters).
 
-TPU-native design (no reference counterpart — /root/reference/README.md:2
-names only the vectordb): a filter is a dense ALLOW-BITMAP keyed by GLOBAL
+Design (no reference counterpart — the reference README names only the
+vectordb): a filter is a dense ALLOW-BITMAP keyed by GLOBAL
 id, staged on device once per filter object. Each search gathers it through
 the index's live device id table into arena order (one (N,) int8 gather that
 is always coherent with in-place adds/removes — no invalidation protocol),

@@ -1,26 +1,21 @@
 """Exact brute-force index — ground truth + small/medium-scale serving.
 
-Vectors live in device HBM (bf16 or f32; int8 symmetric quantization for
-memory-bound scales — at 100M×768d raw f32 does not fit a v5e-8, SURVEY.md
-§7.3 item 4). Search is the fused Pallas scan on TPU, or the exact XLA tiled
-scan (``exact=True`` / non-TPU backends).
+Vectors live in device memory (bf16 or f32; int8 symmetric quantization
+for memory-bound scales — 100M×768d raw f32 is 307 GB, SURVEY.md §7.3 item
+4). Search is the exact XLA tiled scan (ops/topk.py) on every backend; an
+int8 store is widened to f32 one tile at a time inside the scan, never as
+a whole.
 """
 
 from __future__ import annotations
 
 import numpy as np
-import jax
 import jax.numpy as jnp
 
 from cloudvectordb_tpu.index.base import Index
 from cloudvectordb_tpu.ops.topk import tiled_topk
-from cloudvectordb_tpu.ops.pallas_topk import flat_topk_pallas
 
 _STORE_DTYPES = {"float32": jnp.float32, "bfloat16": jnp.bfloat16, "int8": jnp.int8}
-
-
-def _on_tpu() -> bool:
-    return jax.default_backend() == "tpu"
 
 
 class FlatIndex(Index):
@@ -124,30 +119,18 @@ class FlatIndex(Index):
             return self._vecs, self._scale
         return self._vecs, 1.0
 
-    def search(self, queries, k: int, exact: bool | None = None, tile: int = 8192):
-        """Exact by default off-TPU; fused Pallas bucketed scan on TPU."""
+    def search(self, queries, k: int, tile: int = 8192):
+        """Exact top-k (scores dequantized for int8 stores)."""
         queries = jnp.asarray(queries)
         vecs, scale = self._search_arrays()
         sqnorms = self._sqnorms if self.metric == "l2" else None
         if self.dtype == "int8":
-            # score against the int8 store with the query pre-scaled, so the
-            # matmul runs in low precision and scores come out dequantized.
+            # pre-scale the query so int8-row scores come out dequantized
             queries = (queries * scale).astype(jnp.float32)
-        use_pallas = _on_tpu() if exact is None else not exact
-        if use_pallas and self.ntotal >= 2048 and self.dtype == "int8":
-            from cloudvectordb_tpu.ops.pallas_topk import flat_topk_pallas_int8
-
-            # queries here were pre-scaled by `scale` above; undo for the
-            # int8 path, which quantizes raw queries itself.
-            s, i = flat_topk_pallas_int8(vecs, scale, queries / scale, k)
-        elif use_pallas and self.ntotal >= 2048:
-            s, i = flat_topk_pallas(vecs, queries, k, metric=self.metric, db_sqnorms=sqnorms)
-        else:
-            db = vecs if self.dtype != "int8" else vecs.astype(jnp.float32)
-            s, i = tiled_topk(
-                db, queries, k, metric=self.metric, tile=min(tile, max(256, self.ntotal)),
-                db_sqnorms=sqnorms,
-            )
+        s, i = tiled_topk(
+            vecs, queries, k, metric=self.metric,
+            tile=min(tile, max(256, self.ntotal)), db_sqnorms=sqnorms,
+        )
         s, i = np.asarray(s), np.asarray(i)
         if self._ids is not None:  # post-remove: positions → original ids
             i = self._ids[np.clip(i, 0, self.ntotal - 1)]

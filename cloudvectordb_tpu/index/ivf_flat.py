@@ -1,7 +1,7 @@
 """IVF-Flat: coarse quantizer + raw-vector lists (BASELINE config #2).
 
 Build: k-means (XLA scan) → assign every vector → list-sorted arena.
-Search: coarse top-nprobe on the MXU, then a query-major gather of fixed-cap
+Search: coarse top-nprobe as one matmul, then a query-major gather of fixed-cap
 list windows scanned per probe under ``lax.scan`` (static shapes; tails
 masked). Incremental `add` goes through the LSM pending buffer (arena.py);
 pending rows are scanned flat at query time, so results are identical to a

@@ -7,8 +7,9 @@ term of the score is a per-(query, probe) constant, and only the residual part
 needs the PQ lookup (SURVEY.md §3.5).
 
 Scoring inside a probe is classic ADC — per-query LUT (m, 2**nbits) built with
-one small matmul, then code lookups. The full-scan decode-by-matmul Pallas
-path (ops/pallas_pq.py) is the batched high-throughput alternative.
+one small matmul, then code lookups. The tile-pruned PQ family
+(index/ivf_band.py::BandIVFPQIndex, ops/pq_scan.py) is the batched
+alternative.
 """
 
 from __future__ import annotations
@@ -452,37 +453,14 @@ class IVFPQIndex(Index):
         return self._dev
 
     def search(self, queries, k: int, nprobe: int | None = None,
-               batch: int = 256, refine_factor: int | None = None,
-               small_batch_ok: bool = False):
+               batch: int = 256, refine_factor: int | None = None):
         """With refine enabled, the ADC stage retrieves refine_factor·k
         candidates which are exactly re-scored from the int8 store — PQ
         becomes the candidate generator, recall is refine-limited.
         nprobe/refine_factor default to the tuned op point (Index.tune)
-        when one is set, else 8 / 16.
-
-        SMALL-BATCH WARNING (r4, VERDICT weak #5): the probe-scan kernel's
-        per-dispatch cost is gather-bound on TPU (~66 QPS at 12.5M,
-        measured r2/r3, batch-size-independent) — a B=1 call runs ~3 orders
-        of magnitude under the band family's tiles path (0.45 ms/query at
-        the same scale). Small TPU batches warn loudly and point at
-        BandIVFIndex/BandIVFPQIndex; pass ``small_batch_ok=True`` to opt
-        in knowingly (e.g. correctness tests, tiny indexes)."""
+        when one is set, else 8 / 16. The probe scan's speed on the GPU is
+        not measured yet (ROADMAP A3)."""
         assert self.is_trained
-        import jax as _jax
-
-        if (not small_batch_ok
-                and np.shape(queries)[0] < 64
-                and self.ntotal > 1_000_000
-                and _jax.default_backend() == "tpu"):
-            import warnings
-
-            warnings.warn(
-                "IVFPQIndex.search with a small batch on TPU runs the "
-                "gather-bound probe-scan (~66 QPS at 12.5M rows, measured) "
-                "— 3 orders of magnitude under the band family's tiles "
-                "path. Use BandIVFIndex/BandIVFPQIndex for low-latency "
-                "serving, batch your queries, or pass small_batch_ok=True "
-                "to silence this.", RuntimeWarning, stacklevel=2)
         self.merge_pending()  # pending rows are PQ codes; simplest correct path
         raw_queries = np.asarray(queries, np.float32)
         queries = self._rotate(raw_queries) if self.opq_matrix is not None else raw_queries

@@ -1,6 +1,6 @@
-"""Lloyd's k-means as an XLA-compiled loop on TPU (SURVEY.md §2.2, §7.3 item 5).
+"""Lloyd's k-means as an XLA-compiled device loop (SURVEY.md §2.2, §7.3 item 5).
 
-Per iteration: tiled nearest-centroid assignment (MXU matmuls via
+Per iteration: tiled nearest-centroid assignment (matmuls via
 ops.assign), centroid update by segment-sum (on-device scatter-add), and
 empty-cluster repair by re-seeding dead centroids onto perturbed copies of the
 centroids owning the most points. The whole optimization is one jitted

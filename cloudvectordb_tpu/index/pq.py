@@ -1,10 +1,10 @@
 """Product quantization: codebook training, encode, decode (SURVEY.md §2.2).
 
 Training is m independent sub-space k-means runs, vmapped so all sub-spaces
-optimize simultaneously on the MXU (BASELINE config #3: m=64, nbits=8).
+optimize simultaneously as matmuls (BASELINE config #3: m=64, nbits=8).
 
-TPU-first note: decode is expressed as one-hot matmuls when on the hot path
-(see ops/pq_score.py); the gather-based decode here is for build/test paths.
+The query-time decode lives in ops/pq_scan.py (a codebook gather); the
+decode here serves build/test paths.
 """
 
 from __future__ import annotations
@@ -64,7 +64,7 @@ def train_pq_aniso(
     ORIGINAL vectors when `x` holds coarse residuals — the score direction is
     the full datapoint, not the residual). eta=1 reduces exactly to Lloyd.
 
-    Assignment is the MXU-tiled expansion
+    Assignment is the tiled matmul expansion
     ``base + (eta-1)(p_i - u_i.c_k)^2`` (two matmuls per tile); the codeword
     update solves the per-cluster normal equations
     ``(n_k I + (eta-1) U_k^T U_k) c = sum x + (eta-1) U_k^T p_k`` — segment
@@ -148,9 +148,7 @@ def pq_encode_aniso(x, xdir, codebooks, eta: float, tile: int = 4096):
     caller's arrays (``dynamic_slice`` — no padded (N, D) copies, no
     (N, m, dsub) split), all m sub-spaces batched into one (m, tile, ncode)
     einsum per block. Peak HBM beyond the inputs is one block's distance
-    tensor + the (N, m) uint8 output. (Earlier versions materialized
-    several (500k, 64, 12)-or-(500k, 768) temps next to the donated build
-    arenas and OOM'd a 16 GB chip inside encode_scatter.)
+    tensor + the (N, m) uint8 output.
     """
     m, ncode, ds = codebooks.shape
     n, d = x.shape

@@ -1,6 +1,6 @@
 """Range search: all neighbors within a score/distance threshold.
 
-TPU-first shape: the hardware path stays the family's static-shape fused
+Static shapes: the device path stays the family's static-shape fused
 top-k kernel; range semantics are recovered by adaptive k-escalation —
 search at k, detect queries whose k-th retained score still clears the
 threshold ("saturated": the result ring may be cut off), re-issue the whole
@@ -76,8 +76,8 @@ class RangeSearchMixin:
             saturated = valid.all(axis=1) & (worst >= thresh)
             if s.shape[1] < k:
                 # the family surfaced fewer candidates than requested (e.g.
-                # the band kernel's per-query pool is l_buckets wide;
-                # sharded merges pool shards × that): escalating k further
+                # the tile families scan only p_tiles·tile_n rows per query
+                # group): escalating k further
                 # cannot widen the result — stop, and say so if any ball
                 # may extend past the pool
                 if saturated.any():

@@ -1,3 +1,3 @@
-"""L5 encoder layer: flax transformer sentence encoder + large-batch encode."""
+"""L5 encoder layer: plain-JAX transformer sentence encoder + large-batch encode."""
 
 from cloudvectordb_tpu.models.encoder import Encoder, init_encoder  # noqa: F401

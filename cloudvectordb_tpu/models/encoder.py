@@ -1,22 +1,22 @@
 """Transformer sentence encoder (MiniLM-L6-class; BASELINE.json:8-9).
 
-BERT-style post-LN encoder in flax.linen, written TPU-first:
-  - activations in bfloat16, parameters in float32 (master weights);
-  - all matmuls MXU-shaped (hidden/mlp dims multiples of 128 in the default
-    configs), static max_len, attention as one fused dot_general pair;
-  - mean/CLS pooling + optional L2 normalization — the output feeds the index
-    directly ("building the vectordb with the encoder",
-    /root/reference/README.md:2).
+BERT-style post-LN encoder in plain JAX:
+  - activations in bfloat16 by default, parameters in float32 (master
+    weights); LayerNorm statistics and softmax run in float32;
+  - static max_len, attention as one fused dot_general pair (or cuDNN's
+    fused attention on the GPU, ``attn_impl``);
+  - mean/CLS pooling + optional L2 normalization — the output feeds the
+    index directly.
 
-Weight import from a HuggingFace BERT checkpoint is in models/hf_import.py
-(gated: the build environment is offline).
+The module keeps the ``Encoder(cfg).init(rng, ids, mask)`` /
+``.apply({"params": p}, ids, mask, deterministic, rngs={"dropout": key})``
+interface and the parameter tree of the original flax module
+(``tok_emb/embedding``, ``layer_{i}/attention/query/kernel`` …), so
+checkpoints and the HuggingFace import (models/hf_import.py) carry over.
 """
 
 from __future__ import annotations
 
-from typing import Any
-
-import flax.linen as nn
 import jax
 import jax.numpy as jnp
 
@@ -24,207 +24,190 @@ from cloudvectordb_tpu.utils.config import EncoderConfig
 
 _DTYPES = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
 
-# 'auto' selects the packed small-head kernel (ops/pallas_attn.py) where
-# it applies — validated on-chip r4 (v5e Mosaic: fwd 1.5e-4 / grads ≤4e-4
-# vs the naive path, i.e. within the default bf16-pass matmul precision;
-# step-time numbers in ROUND4.md). Set False to pin 'auto' to the naive
-# path on an unvalidated Mosaic version.
-_PACKED_AUTO = True
+#: shortest sequence at which attn_impl='auto' takes cuDNN on the GPU when
+#: no attention-probs dropout is pending: on an H100 (700 W) cuDNN won at L=128
+#: (train step 36.1 vs 43.1 ms, encode 14.8 vs 18.1 ms) and lost at the
+#: L=32 query encode (18.8 vs 14.7 ms) — PERF.md, scripts/attn_timing.py
+_CUDNN_MIN_LEN = 128
 
 
-class SelfAttention(nn.Module):
-    cfg: EncoderConfig
-    dtype: Any
-
-    @nn.compact
-    def __call__(self, x, mask, deterministic: bool):
-        c = self.cfg
-        head_dim = c.hidden_dim // c.num_heads
-        dense = lambda name: nn.DenseGeneral(  # noqa: E731
-            (c.num_heads, head_dim), dtype=self.dtype, name=name
-        )
-        q = dense("query")(x)
-        k = dense("key")(x)
-        v = dense("value")(x)
-        scale = head_dim ** -0.5
-        attn_p = c.dropout if c.attn_dropout is None else c.attn_dropout
-        impl = self._attn_dispatch(attn_p, deterministic, int(x.shape[1]),
-                                   int(x.shape[0]))
-        if impl == "packed":
-            # r4: the head-PACKED single-block kernel (ops/pallas_attn.py)
-            # — heads ride the lane dim as (L, H·d), zero padding at
-            # head_dim 32, the (L, L) scores never leave VMEM. Built for
-            # exactly this encoder's geometry; see the module doc for why
-            # the stock flash kernel loses here.
-            from cloudvectordb_tpu.ops.pallas_attn import mha_small_head
-
-            b, l, _, _ = q.shape
-            out = mha_small_head(
-                q.reshape(b, l, c.hidden_dim), k.reshape(b, l, c.hidden_dim),
-                v.reshape(b, l, c.hidden_dim), mask.astype(jnp.int32),
-                c.num_heads, head_dim, scale,
-            ).reshape(b, l, c.num_heads, head_dim).astype(self.dtype)
-        elif impl == "fused":
-            # the STOCK flash kernel (long-sequence streaming softmax) —
-            # only sensible at head_dim ≥ 128 (it lane-pads the head dim;
-            # measured 4× loss at 32 — _attn_dispatch doc). Padding rides
-            # SEGMENT ids; pad QUERIES attend only pads — garbage rows
-            # that masked mean pooling drops downstream, exactly like the
-            # naive path's -inf column masking. Requires attn_dropout=0.
-            from jax.experimental.pallas.ops.tpu.flash_attention import (
-                SegmentIds, flash_attention)
-
-            seg = mask.astype(jnp.int32)
-            out = flash_attention(
-                jnp.transpose(q, (0, 2, 1, 3)),
-                jnp.transpose(k, (0, 2, 1, 3)),
-                jnp.transpose(v, (0, 2, 1, 3)),
-                segment_ids=SegmentIds(q=seg, kv=seg),
-                sm_scale=scale,
-            )
-            out = jnp.transpose(out, (0, 2, 1, 3)).astype(self.dtype)
-        elif impl == "packed_batch":
-            # SERVING regime, short sequences (r5, VERDICT item 6): at
-            # L=32 the naive einsums run (B, H, 32, 32) batched matmuls —
-            # M=N=32 wastes 16× of every 128×128 MXU tile (measured: the
-            # 12-head einsum is 6.8× slower than the SAME FLOPs at one
-            # 384-wide head). Packing P=128/L sequences per attention
-            # block with a block-diagonal mask makes both matmuls
-            # full-tile (B/P, H, 128, 128) at P× attention FLOPs —
-            # attention is ~3% of encode FLOPs, so the trade is free.
-            # Math is IDENTICAL to the naive path (same -inf masking +
-            # f32 softmax); cross-sequence keys are masked out.
-            b, l = q.shape[0], q.shape[1]
-            P = 128 // l
-            qp = q.reshape(b // P, P * l, c.num_heads, head_dim)
-            kp = k.reshape(b // P, P * l, c.num_heads, head_dim)
-            vp = v.reshape(b // P, P * l, c.num_heads, head_dim)
-            logits = jnp.einsum("bqhd,bkhd->bhqk", qp * scale, kp)
-            blk = jnp.kron(jnp.eye(P, dtype=jnp.int32),
-                           jnp.ones((l, l), jnp.int32)
-                           ).astype(bool)  # (P·L, P·L) own-sequence block
-            keym = mask.reshape(b // P, P * l)
-            allowed = blk[None, None, :, :] & keym[:, None, None, :]
-            neg = jnp.finfo(jnp.float32).min
-            logits = jnp.where(allowed, logits.astype(jnp.float32), neg)
-            probs = jax.nn.softmax(logits, axis=-1).astype(self.dtype)
-            out = jnp.einsum("bhqk,bkhd->bqhd", probs, vp).reshape(
-                b, l, c.num_heads, head_dim)
-        else:
-            logits = jnp.einsum("bqhd,bkhd->bhqk", q * scale, k)
-            neg = jnp.finfo(jnp.float32).min
-            logits = jnp.where(mask[:, None, None, :],
-                               logits.astype(jnp.float32), neg)
-            probs = jax.nn.softmax(logits, axis=-1).astype(self.dtype)
-            probs = nn.Dropout(attn_p)(probs, deterministic=deterministic)
-            out = jnp.einsum("bhqk,bkhd->bqhd", probs, v)
-        out = nn.DenseGeneral(
-            c.hidden_dim, axis=(-2, -1), dtype=self.dtype, name="out"
-        )(out)
-        return out
-
-    def _attn_dispatch(self, attn_p: float, deterministic: bool,
-                       seq_len: int, batch: int = 0) -> str:
-        """Pick the attention implementation for this call.
-
-        - 'packed_batch' (r5, serving): for deterministic short-sequence
-          forwards (L < 128, 128 % L == 0, B % (128/L) == 0) pack 128/L
-          sequences per attention block with block-diagonal masking —
-          full-MXU-tile matmuls instead of (B, H, L, L) thin ones
-          (measured at L=32/B=4096: encode 187.6 → see bench; the naive
-          einsum pays 16× tile padding at M=N=32). 'auto' picks it on
-          TPU; explicit works on any backend (exact same math).
-
-        - 'packed' (ops/pallas_attn.py, r4): the short-sequence small-head
-          kernel — heads packed in the lane dim, per-sequence (L, L)
-          scores never leave VMEM. 'auto' prefers it whenever it applies:
-          TPU, no probs-dropout pending, L % 128 == 0, L ≤ 512 (the
-          single-block VMEM budget).
-        - 'fused': the STOCK flash kernel — measured r4 NEGATIVE result at
-          MiniLM geometry (lane-pads head_dim 32→128: fwd encode 8.9k →
-          5.9k passages/s, bwd temps 27 MB past HBM); 'auto' only picks
-          it at head_dim % 128 == 0 where the padding vanishes.
-        - 'naive': the materialized-logits XLA path (always correct,
-          CPU-testable; the dropout-carrying path).
-
-        The kernels' 128-block rule binds on the RUNTIME sequence length
-        (query-side serving truncates below max_len), not the config."""
-        impl = getattr(self.cfg, "attn_impl", "auto")
-        if impl == "naive":
-            return "naive"
-        c = self.cfg
-        no_drop = (deterministic
-                   or (c.attn_dropout is not None and attn_p == 0.0))
-        pb_applies = (no_drop and 0 < seq_len < 128 and 128 % seq_len == 0
-                      and batch > 0 and batch % (128 // seq_len) == 0)
-        if impl == "packed_batch":
-            assert no_drop, (
-                "attn_impl='packed_batch' needs attn_dropout=0.0 or a "
-                "deterministic forward (no probs-dropout)")
-            # shape-conditional: identical math to naive, so batches that
-            # don't divide 128/L (e.g. the 2-row init trace) fall back
-            return impl if pb_applies else "naive"
-        applies = (no_drop and seq_len % 128 == 0
-                   and jax.default_backend() == "tpu")
-        if impl in ("fused", "packed"):
-            assert applies, (
-                f"attn_impl={impl!r} needs the TPU backend, seq_len % 128 "
-                "== 0, and attn_dropout=0.0 (no probs-dropout in-kernel)")
-            return impl
-        if pb_applies and jax.default_backend() == "tpu":
-            return "packed_batch"
-        # regime split (measured r4, bench_encode.py): the packed kernel
-        # wins TRAINING (269 vs 277 ms/step — the bwd never re-materializes
-        # the (L, L) tensors) but loses fwd-only ENCODE (6.9k vs 8.0k
-        # passages/s — per-sequence grid overhead with no bwd to amortize
-        # it); deterministic=True is the encode/serving regime.
-        if (applies and seq_len <= 512 and _PACKED_AUTO
-                and not deterministic):
-            return "packed"
-        if applies and (c.hidden_dim // c.num_heads) % 128 == 0:
-            return "fused"
-        return "naive"
+def _dense(p, x, dtype, contract=1):
+    """x @ kernel + bias over the last ``contract`` axes of x (flax
+    Dense/DenseGeneral semantics: operands cast to the compute dtype)."""
+    k = p["kernel"].astype(dtype)
+    y = jnp.tensordot(x.astype(dtype), k, axes=contract)
+    return y + p["bias"].astype(dtype)
 
 
-class EncoderLayer(nn.Module):
-    cfg: EncoderConfig
-    dtype: Any
-
-    @nn.compact
-    def __call__(self, x, mask, deterministic: bool):
-        c = self.cfg
-        attn = SelfAttention(c, self.dtype, name="attention")(x, mask, deterministic)
-        attn = nn.Dropout(c.dropout)(attn, deterministic=deterministic)
-        x = nn.LayerNorm(dtype=self.dtype, name="attention_ln")(x + attn)
-        h = nn.Dense(c.mlp_dim, dtype=self.dtype, name="mlp_in")(x)
-        h = nn.gelu(h, approximate=True)
-        h = nn.Dense(c.hidden_dim, dtype=self.dtype, name="mlp_out")(h)
-        h = nn.Dropout(c.dropout)(h, deterministic=deterministic)
-        return nn.LayerNorm(dtype=self.dtype, name="mlp_ln")(x + h)
+def _layer_norm(p, x, dtype, eps: float = 1e-6):
+    xf = x.astype(jnp.float32)
+    mu = jnp.mean(xf, axis=-1, keepdims=True)
+    var = jnp.mean(jnp.square(xf - mu), axis=-1, keepdims=True)
+    y = (xf - mu) * jax.lax.rsqrt(var + eps)
+    return (y * p["scale"] + p["bias"]).astype(dtype)
 
 
-class Encoder(nn.Module):
+def _dropout(x, rate: float, key):
+    if key is None or rate == 0.0:
+        return x
+    keep = jax.random.bernoulli(key, 1.0 - rate, x.shape)
+    return jnp.where(keep, x / (1.0 - rate), 0).astype(x.dtype)
+
+
+class _Keys:
+    """Distinct dropout keys per call site (None when deterministic)."""
+
+    def __init__(self, key):
+        self._key, self._n = key, 0
+
+    def __call__(self):
+        if self._key is None:
+            return None
+        self._n += 1
+        return jax.random.fold_in(self._key, self._n)
+
+
+def attn_dispatch(cfg: EncoderConfig, attn_p: float, deterministic: bool,
+                  seq_len: int, platform: str | None = None) -> str:
+    """'naive' (materialized logits, the dropout-carrying path) or 'cudnn'
+    (jax.nn.dot_product_attention through cuDNN — GPU only, bf16, no
+    attention-probs dropout)."""
+    impl = cfg.attn_impl
+    no_drop = deterministic or attn_p == 0.0
+    if impl == "cudnn":
+        assert no_drop, (
+            "attn_impl='cudnn' has no attention-probs dropout: set "
+            "attn_dropout=0.0 or run deterministic")
+        return impl
+    if impl == "naive":
+        return impl
+    assert impl == "auto", f"unknown attn_impl {impl!r}"
+    platform = platform or jax.default_backend()
+    if (platform == "gpu" and no_drop and cfg.dtype == "bfloat16"
+            and seq_len >= _CUDNN_MIN_LEN):
+        return "cudnn"
+    return "naive"
+
+
+def _attention(p, x, mask, cfg, dtype, deterministic, keys):
+    nh = cfg.num_heads
+    hd = cfg.hidden_dim // nh
+    q = _dense(p["query"], x, dtype)  # (B, L, H, hd)
+    k = _dense(p["key"], x, dtype)
+    v = _dense(p["value"], x, dtype)
+    scale = hd ** -0.5
+    attn_p = cfg.dropout if cfg.attn_dropout is None else cfg.attn_dropout
+    if attn_dispatch(cfg, attn_p, deterministic, x.shape[1]) == "cudnn":
+        out = jax.nn.dot_product_attention(
+            q, k, v, scale=scale, implementation="cudnn",
+            key_value_seq_lengths=jnp.sum(mask, axis=1).astype(jnp.int32))
+    else:
+        logits = jnp.einsum("bqhd,bkhd->bhqk", q * scale, k)
+        neg = jnp.finfo(jnp.float32).min
+        logits = jnp.where(mask[:, None, None, :],
+                           logits.astype(jnp.float32), neg)
+        probs = jax.nn.softmax(logits, axis=-1).astype(dtype)
+        probs = _dropout(probs, attn_p, keys())
+        out = jnp.einsum("bhqk,bkhd->bqhd", probs, v)
+    return _dense(p["out"], out, dtype, contract=2)
+
+
+def _layer(p, x, mask, cfg, dtype, deterministic, keys):
+    attn = _attention(p["attention"], x, mask, cfg, dtype, deterministic, keys)
+    attn = _dropout(attn, cfg.dropout, keys())
+    x = _layer_norm(p["attention_ln"], x + attn, dtype)
+    h = _dense(p["mlp_in"], x, dtype)
+    h = jax.nn.gelu(h, approximate=True)
+    h = _dense(p["mlp_out"], h, dtype)
+    h = _dropout(h, cfg.dropout, keys())
+    return _layer_norm(p["mlp_ln"], x + h, dtype)
+
+
+class Encoder:
     """token ids (B, L) + mask (B, L) → sentence embeddings (B, out_dim)."""
 
-    cfg: EncoderConfig
+    def __init__(self, cfg: EncoderConfig):
+        self.cfg = cfg
 
-    @nn.compact
-    def __call__(self, input_ids, attention_mask, deterministic: bool = True):
+    @property
+    def embed_dim(self) -> int:
+        return self.cfg.out_dim or self.cfg.hidden_dim
+
+    def init(self, rng, input_ids=None, attention_mask=None,
+             deterministic: bool = True) -> dict:
+        """Fresh parameters (flax's default initializers: LeCun-normal
+        kernels, zero biases, N(0, 1/hidden) embeddings, unit LayerNorm)."""
+        del input_ids, attention_mask, deterministic
         c = self.cfg
+        hd = c.hidden_dim // c.num_heads
+        lecun = jax.nn.initializers.lecun_normal()
+        emb = jax.nn.initializers.variance_scaling(1.0, "fan_in", "normal",
+                                                   out_axis=0)
+        keys = iter(jax.random.split(rng, 4 + 6 * c.num_layers))
+
+        def dense(shape_in, shape_out):
+            fan_in = 1
+            for s in shape_in:
+                fan_in *= s
+            fan_out = 1
+            for s in shape_out:
+                fan_out *= s
+            w = lecun(next(keys), (fan_in, fan_out), jnp.float32)
+            return {"kernel": w.reshape(shape_in + shape_out),
+                    "bias": jnp.zeros(shape_out, jnp.float32)}
+
+        def ln():
+            return {"scale": jnp.ones((c.hidden_dim,), jnp.float32),
+                    "bias": jnp.zeros((c.hidden_dim,), jnp.float32)}
+
+        h = c.hidden_dim
+        params = {
+            "tok_emb": {"embedding": emb(next(keys), (c.vocab_size, h))},
+            "pos_emb": {"embedding": emb(next(keys), (c.max_len, h))},
+            "emb_ln": ln(),
+        }
+        for i in range(c.num_layers):
+            params[f"layer_{i}"] = {
+                "attention": {
+                    "query": dense((h,), (c.num_heads, hd)),
+                    "key": dense((h,), (c.num_heads, hd)),
+                    "value": dense((h,), (c.num_heads, hd)),
+                    "out": dense((c.num_heads, hd), (h,)),
+                },
+                "attention_ln": ln(),
+                "mlp_in": dense((h,), (c.mlp_dim,)),
+                "mlp_out": dense((c.mlp_dim,), (h,)),
+                "mlp_ln": ln(),
+            }
+        if c.out_dim and c.out_dim != h:
+            params["proj"] = dense((h,), (c.out_dim,))
+        return {"params": params}
+
+    def apply(self, variables, input_ids, attention_mask,
+              deterministic: bool = True, rngs: dict | None = None):
+        c = self.cfg
+        p = variables["params"]
         dtype = _DTYPES[c.dtype]
-        tok = nn.Embed(c.vocab_size, c.hidden_dim, dtype=dtype, name="tok_emb")(
-            input_ids
-        )
-        pos_ids = jnp.arange(input_ids.shape[1])[None, :]
-        pos = nn.Embed(c.max_len, c.hidden_dim, dtype=dtype, name="pos_emb")(pos_ids)
-        x = nn.LayerNorm(dtype=dtype, name="emb_ln")(tok + pos)
-        x = nn.Dropout(c.dropout)(x, deterministic=deterministic)
+        key = None if deterministic else (rngs or {}).get("dropout")
+        assert deterministic or key is not None, (
+            "a non-deterministic forward needs rngs={'dropout': key}")
+        keys = _Keys(key)
+        tok = p["tok_emb"]["embedding"][input_ids].astype(dtype)
+        pos = p["pos_emb"]["embedding"][: input_ids.shape[1]].astype(dtype)
+        x = _layer_norm(p["emb_ln"], tok + pos[None], dtype)
+        x = _dropout(x, c.dropout, keys())
         mask = attention_mask.astype(bool)
-        # remat: recompute layer activations in the backward pass — frees HBM
-        # for bigger contrastive batches (in-batch negatives scale with B)
-        layer_cls = nn.remat(EncoderLayer, static_argnums=(3,)) if c.remat else EncoderLayer
-        for layer in range(c.num_layers):
-            x = layer_cls(c, dtype, name=f"layer_{layer}")(x, mask, deterministic)
+        for i in range(c.num_layers):
+            lk = _Keys(keys())
+
+            def run(lp, x, mask, lk=lk):
+                return _layer(lp, x, mask, c, dtype, deterministic, lk)
+
+            if c.remat:
+                # recompute layer activations in the backward pass — frees
+                # device memory for bigger contrastive batches
+                run = jax.checkpoint(run)
+            x = run(p[f"layer_{i}"], x, mask)
         if c.pooling == "cls":
             pooled = x[:, 0, :]
         else:  # masked mean pooling
@@ -233,7 +216,7 @@ class Encoder(nn.Module):
                 jnp.sum(w, axis=1), 1.0
             )
         if c.out_dim and c.out_dim != c.hidden_dim:
-            pooled = nn.Dense(c.out_dim, dtype=jnp.float32, name="proj")(pooled)
+            pooled = _dense(p["proj"], pooled, jnp.float32)
         pooled = pooled.astype(jnp.float32)
         if c.normalize:
             pooled = pooled / jnp.maximum(
@@ -241,15 +224,8 @@ class Encoder(nn.Module):
             )
         return pooled
 
-    @property
-    def embed_dim(self) -> int:
-        return self.cfg.out_dim or self.cfg.hidden_dim
-
 
 def init_encoder(cfg: EncoderConfig, seed: int = 0):
-    """Returns (model, params) with a dummy trace at max_len."""
+    """Returns (model, params)."""
     model = Encoder(cfg)
-    ids = jnp.zeros((2, cfg.max_len), jnp.int32)
-    mask = jnp.ones((2, cfg.max_len), jnp.int32)
-    params = model.init(jax.random.PRNGKey(seed), ids, mask, deterministic=True)
-    return model, params["params"]
+    return model, model.init(jax.random.PRNGKey(seed))["params"]

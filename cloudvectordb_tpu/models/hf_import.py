@@ -1,4 +1,4 @@
-"""Import HuggingFace BERT-family weights into the flax Encoder.
+"""Import HuggingFace BERT-family weights into the Encoder.
 
 MiniLM-L6 / BERT checkpoints map 1:1 onto models/encoder.py (same post-LN
 transformer). Gated: the build environment is offline (no HF cache), so this
@@ -32,7 +32,7 @@ def _split_heads(w: np.ndarray, num_heads: int) -> np.ndarray:
 
 
 def params_from_state_dict(sd: dict, cfg: EncoderConfig) -> dict:
-    """HF BertModel state dict (torch tensors or numpy) → flax params tree."""
+    """HF BertModel state dict (torch tensors or numpy) → encoder params tree."""
     g = lambda k: np.asarray(sd[k].numpy() if hasattr(sd[k], "numpy") else sd[k])  # noqa: E731
     nh = cfg.num_heads
     hd = cfg.hidden_dim // nh

@@ -1,17 +1,10 @@
-"""L0 kernels: fused distance+top-k, PQ decode/ADC, k-means assignment.
+"""L0 kernels: distance+top-k, PQ decode/ADC, k-means assignment.
 
-Two implementations per hot op:
-  - an XLA path (``lax.scan`` over tiles) — correctness backbone, runs on any
-    backend, surprisingly close to speed-of-light because the MXU matmul
-    dominates;
-  - a Pallas path (fused tile matmul + bucketed top-k merge in VMEM) — avoids
-    materializing per-tile score matrices in HBM on the biggest scans.
-
-Design note (TPU-first, SURVEY.md §7.3): TPUs have no fast random gather, so
-PQ scoring is NOT a LUT-gather ADC like CPU/GPU implementations. Instead PQ is
-treated as a *memory format*: code tiles are decoded on-the-fly with one-hot
-matmuls (MXU) into VMEM-resident bf16 tiles and scored with a plain matmul
-against the query block, amortizing decode cost over the query batch.
+Every hot op has a plain XLA form (``lax.scan``/``lax.map`` over tiles)
+that runs on any backend. The tile-pruned residual-int8 scan — the
+serving hot path — also has a Pallas kernel compiled through Triton for
+the GPU (ops/pallas_band.py), which keeps the gathered tiles and the
+score matrix out of device memory; ops/backend.py decides which runs.
 """
 
 import functools

@@ -1,17 +1,11 @@
 """ADC scan — asymmetric distance computation over PQ codes (SURVEY.md §1.2
 L0: ``adc_scan(codes, lut, k)``; §2.2 "THE hot kernel at 100M scale").
 
-TPU-first note: there is no fast random gather on TPU, so the classic
-per-element LUT lookup is expressed as matmuls. Two regimes:
-
-  - small batch (B < 16): per-subspace one-hot matmul ADC,
-    scores += OHⱼ · LUTⱼᵀ — cost m·2ᵇ per (code, query);
-  - batch (B ≥ 16): decode-then-matmul via the fused Pallas kernel
-    (ops/pallas_pq.py) — codebook work amortizes over the batch and the
-    decoded tile never touches HBM. ~10× fewer MACs at B=256.
-
-Both return exact ADC scores (identical to gather-based ADC up to fp
-rounding); this module picks the formulation, callers see one API.
+The per-element LUT lookup is expressed as a per-subspace one-hot matmul,
+scores += OHⱼ · LUTⱼᵀ — cost m·2ᵇ per (code, query); exact ADC scores
+(identical to gather-based ADC up to fp rounding). The form was chosen
+for hardware without a fast gather; whether a LUT gather wins on the H100
+is not measured (ROADMAP A3).
 """
 
 from __future__ import annotations

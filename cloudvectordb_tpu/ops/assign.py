@@ -2,7 +2,7 @@
 
 Used by the k-means trainer (Lloyd's iterations), IVF list assignment at build
 time, and coarse probing at query time (SURVEY.md §2.4 item 3). Distances are
-expanded so the N×C interaction is a single MXU matmul per tile; the full
+expanded so the N×C interaction is a single matmul per tile; the full
 (N, C) matrix is never materialized for large N.
 """
 

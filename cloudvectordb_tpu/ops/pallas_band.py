@@ -1,28 +1,44 @@
-"""Band-pruned IVF scan — the TPU-native answer to per-query list probing.
+"""Tile-pruned IVF scan: centroid ordering, the Hopper tile-scan kernel
+and its plain-XLA form.
 
-Problem (SURVEY.md §7.3 items 2-3): classic IVF search gathers each query's
-nprobe lists — random gathers and dynamic shapes, both TPU-hostile. At large
-batch the union of probed lists approaches the whole index, so *IO* can't be
-pruned — but *compute* can, if queries that probe the same lists are scored
-against the same tiles.
+Scheme (index/ivf_band.py drives it):
+  1. (build time) Relabel coarse centroids along a locality order
+     (``order_centroids``) and lay the arena out list by list, so each
+     fixed-size arena tile spans few lists.
+  2. (query time, XLA) sort queries by their top-1 list, group them
+     ``tile_q`` at a time, and pick each group's ``p_tiles`` best arena
+     tiles (``_plan_tiles``) — one shared tile table per group.
+  3. (scan) score every row of a group's tiles against the group's queries
+     and keep the best rows.
 
-Scheme:
-  1. (build time) Relabel coarse centroids along a 1-D locality order
-     (projection onto their top principal component): queries then probe
-     lists whose NEW ids are contiguous-ish.
-  2. (query time, XLA) coarse top-nprobe per query → per-query id band
-     [min probed, max probed]; sort queries by band center; tile queries.
-     Each query tile's band = union of its queries' bands → an arena row
-     range → a contiguous range of fixed-size arena tiles.
-  3. (kernel) grid (query_tile, band_tile); the scalar-prefetched band-start
-     table drives the DB BlockSpec index_map, so each query tile streams ONLY
-     its band. Short bands clamp to their last tile (idempotent bucketed-max
-     merge makes duplicate tiles harmless).
+Two implementations of step 3 live here, chosen by ``ops/backend.py``:
 
-Scoring a band is a *superset* of the probed lists, so recall ≥ classic IVF
-at equal nprobe. Compute per query ≈ band_fraction × full scan; with locality
-ordering the band is a few× nprobe/nlist, giving a 10–50× prune with zero
-gathers and fully static shapes.
+  - ``impl="triton"`` — one Pallas kernel compiled through Triton for the
+    GPU. A block owns up to ``_BQ`` queries of one group and a contiguous
+    slice of that group's tile list; it loops over the slice inside the
+    block (blocks run in parallel and in no order), reading its own tile
+    ids from the table. The slice count is chosen so the grid holds about
+    ``_FILL_BLOCKS`` blocks. Per ``_BN``-row chunk the block forms the
+    score tile in registers and inserts every score that beats its
+    running k-th best into an exact per-query top-K (K = k rounded up to a
+    power of two, at least 16), so neither the gathered tiles nor the
+    score matrix ever reach HBM. Each block writes its K candidates per
+    query and one ``lax.top_k`` over the slices finishes.
+    ``impl="interpret"`` runs the same kernel in the Pallas interpreter
+    (CPU tests).
+  - ``impl="xla"`` — gather the group's tiles, score them with one
+    ``dot_general`` and take ``lax.top_k``. This is the plain reference,
+    and the implementation on backends without Triton.
+
+Both are exact over the planned tiles. With ``candidates=True`` the plain
+form returns the kernel's per-slice top-K instead of the final top-k —
+what the kernel parity checks compare against.
+
+Residual-int8 arenas (``tiles_topk_resid``) hold int8 RESIDUALS (row − its
+list centroid). The centroid term q·c is not recomputed: the planner's
+(Q, nlist) q·centroid dots are gathered by each row's list id, which is
+``tile_window[tile, local_id]``; the per-row valid end (tail padding and
+slack holes) is gathered the same way.
 """
 
 from __future__ import annotations
@@ -34,9 +50,23 @@ import jax
 import jax.numpy as jnp
 from jax import lax
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
 NEG_INF = float("-inf")
+
+#: query rows per kernel block: one 64-row warpgroup MMA tile.
+_BQ = 64
+#: arena rows per inner chunk, and candidate lanes per block.
+_BN = 128
+#: feature-axis chunk of each MMA (int8 MMA needs K ≥ 32). f32 operands
+#: stop at 64: three pipeline stages of (64 + 128) × 128 f32 need 288 KiB
+#: of shared memory, past the H100's 227 KiB per block (measured refusal).
+_BK_CHOICES = (128, 64, 32)
+_BK_MAX_F32 = 64
+#: target grid size: about two resident blocks on each of an H100's 132 SMs.
+_FILL_BLOCKS = 264
+#: Triton launch shape for the scan kernel.
+_NUM_WARPS = 8
+_NUM_STAGES = 3
 
 
 def order_centroids(centroids: np.ndarray) -> np.ndarray:
@@ -74,695 +104,471 @@ def order_centroids(centroids: np.ndarray) -> np.ndarray:
     return np.asarray(rec(np.arange(len(c))), dtype=np.int64)
 
 
-def _score_tile(q, tile, int8):
-    """Q·tileᵀ under the selected scoring mode.
-
-    int8=True   — int8 queries × int8 rows on the int8 MXU path (fastest).
-    int8='hybrid' — int8 STORAGE (1 byte/row/dim HBM — the real constraint)
-                  upcast to bf16 in VMEM and scored against UNquantized bf16
-                  queries: removes the query-side quantization noise at ~2×
-                  MXU cost, which tile pruning's headroom absorbs.
-    int8=False  — native bf16/f32 rows.
-    """
-    if int8 == "hybrid":
-        return lax.dot_general(
-            q, tile.astype(jnp.bfloat16), (((1,), (1,)), ((), ())),
-            preferred_element_type=jnp.float32,
-        )
-    if int8:
-        return lax.dot_general(
-            q, tile, (((1,), (1,)), ((), ())), preferred_element_type=jnp.int32
-        ).astype(jnp.float32)
-    return lax.dot_general(
-        q, tile, (((1,), (1,)), ((), ())), preferred_element_type=jnp.float32
-    )
-
-
-def _tile_second_best(s3, r_iota, r_star, base, l_buckets):
-    """Within-tile runner-up per bucket (a DISTINCT row: the winner's row is
-    masked before the second reduction). Shared by the top2 variants of the
-    tiles kernels (same scheme as ops/pallas_pq.py's _pq_tiles_kernel)."""
-    s3b = jnp.where(r_iota == r_star[:, None, :], NEG_INF, s3)
-    mx2 = jnp.max(s3b, axis=1)
-    is2 = s3b >= mx2[:, None, :]
-    r2 = jnp.min(jnp.where(is2, r_iota, s3.shape[1]), axis=1)
-    idx2 = base + r2 * l_buckets + lax.broadcasted_iota(
-        jnp.int32, mx2.shape, 1)
-    return mx2, idx2
-
-
-def _merge_top2(val_sc, idx_sc, mx, new_idx, mx2, new_idx2):
-    """Streaming per-bucket top-2 union merge into slots val_sc[0]/[1]:
-    new best = max(run1, tile1); new second = max of the (run1, tile1)
-    loser and max(run2, tile2). Duplicate tile replays stay idempotent —
-    a row already holding slot 1 is excluded from the slot-2 race by
-    index compare."""
-    m1, i1 = val_sc[0], idx_sc[0]
-    m2, i2 = val_sc[1], idx_sc[1]
-    use_t = mx > m1
-    dup = jnp.logical_and(jnp.logical_not(use_t), new_idx == i1)
-    lo = jnp.where(dup, NEG_INF, jnp.where(use_t, m1, mx))
-    lo_i = jnp.where(use_t, i1, new_idx)
-    c2 = jnp.maximum(m2, mx2)
-    c2_i = jnp.where(mx2 > m2, new_idx2, i2)
-    win2 = lo > c2
-    val_sc[0] = jnp.where(use_t, mx, m1)
-    idx_sc[0] = jnp.where(use_t, new_idx, i1)
-    val_sc[1] = jnp.where(win2, lo, c2)
-    idx_sc[1] = jnp.where(win2, lo_i, c2_i)
-
-
-def _band_kernel(
-    band_start_ref,  # scalar prefetch: (n_qt,) first arena tile of each band
-    nv_ref,  # scalar prefetch: (1,) TRUE row count — pad rows masked out
-    q_ref, db_ref, out_v_ref, out_i_ref, val_sc, idx_sc, *, l_buckets, int8
-):
-    j = pl.program_id(1)  # band-tile step
-    n_j = pl.num_programs(1)
-    n = nv_ref[0]
-
-    @pl.when(j == 0)
-    def _init():
-        val_sc[:] = jnp.full_like(val_sc, NEG_INF)
-        idx_sc[:] = jnp.zeros_like(idx_sc)
-
-    scores = _score_tile(q_ref[:], db_ref[:], int8)
-
-    tile_sz = scores.shape[1]
-    qt = pl.program_id(0)
-    at = band_start_ref[qt] + j  # actual arena tile this step loaded
-    rows_per_bucket = tile_sz // l_buckets
-    base = at * tile_sz
-    if rows_per_bucket == 1:
-        # L == tile: pure elementwise merge, no reduction/argmax passes
-        g = base + lax.broadcasted_iota(jnp.int32, scores.shape, 1)
-        mx = jnp.where(g < n, scores, NEG_INF)
-        new_idx = g
-    else:
-        s3 = scores.reshape(scores.shape[0], rows_per_bucket, l_buckets)
-        g_idx = (
-            base
-            + lax.broadcasted_iota(jnp.int32, s3.shape, 1) * l_buckets
-            + lax.broadcasted_iota(jnp.int32, s3.shape, 2)
-        )
-        s3 = jnp.where(g_idx < n, s3, NEG_INF)
-        mx = jnp.max(s3, axis=1)
-        is_max = s3 >= mx[:, None, :]
-        r_iota = lax.broadcasted_iota(jnp.int32, s3.shape, 1)
-        r_star = jnp.min(jnp.where(is_max, r_iota, rows_per_bucket), axis=1)
-        new_idx = base + r_star * l_buckets + lax.broadcasted_iota(jnp.int32, mx.shape, 1)
-    better = mx > val_sc[:]
-    val_sc[:] = jnp.where(better, mx, val_sc[:])
-    idx_sc[:] = jnp.where(better, new_idx, idx_sc[:])
-
-    @pl.when(j == n_j - 1)
-    def _emit():
-        out_v_ref[:] = val_sc[:]
-        out_i_ref[:] = idx_sc[:]
-
+# -- shapes ------------------------------------------------------------------
 
 def _ceil_to(x: int, m: int) -> int:
     return -(-x // m) * m
 
 
-def _tiles_kernel(
-    tile_table_ref,  # scalar prefetch: (n_qt, P) arena-tile id per grid step
-    nv_ref,  # scalar prefetch: (1,) TRUE row count — pad rows masked out
-    q_ref, db_ref, out_v_ref, out_i_ref, val_sc, idx_sc, *, l_buckets, int8,
-    top2=False,
-):
-    """Like _band_kernel but each query tile scans an ARBITRARY tile set
-    (no contiguity needed — 1-D id locality does not exist in high-dim
-    space, so bands degenerate; an explicit table doesn't). top2: best TWO
-    distinct rows per bucket (scratch/out gain a leading slot dim of 2)."""
-    j = pl.program_id(1)
-    n_j = pl.num_programs(1)
-    n = nv_ref[0]
-
-    @pl.when(j == 0)
-    def _init():
-        val_sc[:] = jnp.full_like(val_sc, NEG_INF)
-        idx_sc[:] = jnp.zeros_like(idx_sc)
-
-    scores = _score_tile(q_ref[:], db_ref[:], int8)
-
-    tile_sz = scores.shape[1]
-    qt = pl.program_id(0)
-    at = tile_table_ref[qt, j]
-    rows_per_bucket = tile_sz // l_buckets
-    base = at * tile_sz
-    mx2 = new_idx2 = None
-    if rows_per_bucket == 1:
-        # L == tile: pure elementwise merge, no reduction/argmax passes
-        g = base + lax.broadcasted_iota(jnp.int32, scores.shape, 1)
-        mx = jnp.where(g < n, scores, NEG_INF)
-        new_idx = g
-        if top2:
-            mx2 = jnp.full_like(mx, NEG_INF)
-            new_idx2 = jnp.zeros_like(new_idx)
-    else:
-        s3 = scores.reshape(scores.shape[0], rows_per_bucket, l_buckets)
-        g_idx = (
-            base
-            + lax.broadcasted_iota(jnp.int32, s3.shape, 1) * l_buckets
-            + lax.broadcasted_iota(jnp.int32, s3.shape, 2)
-        )
-        s3 = jnp.where(g_idx < n, s3, NEG_INF)
-        mx = jnp.max(s3, axis=1)
-        is_max = s3 >= mx[:, None, :]
-        r_iota = lax.broadcasted_iota(jnp.int32, s3.shape, 1)
-        r_star = jnp.min(jnp.where(is_max, r_iota, rows_per_bucket), axis=1)
-        new_idx = base + r_star * l_buckets + lax.broadcasted_iota(jnp.int32, mx.shape, 1)
-        if top2:
-            mx2, new_idx2 = _tile_second_best(s3, r_iota, r_star, base,
-                                              l_buckets)
-    if top2:
-        _merge_top2(val_sc, idx_sc, mx, new_idx, mx2, new_idx2)
-    else:
-        better = mx > val_sc[:]
-        val_sc[:] = jnp.where(better, mx, val_sc[:])
-        idx_sc[:] = jnp.where(better, new_idx, idx_sc[:])
-
-    @pl.when(j == n_j - 1)
-    def _emit():
-        out_v_ref[:] = val_sc[:]
-        out_i_ref[:] = idx_sc[:]
+def _feature_chunk(d: int, f32: bool = False) -> tuple[int, int]:
+    """(chunk, padded d): the largest MMA K-chunk dividing d; dims that no
+    chunk divides are zero-padded to a multiple of 32 (inner products are
+    unchanged). Serving dims (768, 384, 128, 96) never pad."""
+    for bk in _BK_CHOICES:
+        if d % bk == 0 and not (f32 and bk > _BK_MAX_F32):
+            return bk, d
+    return 32, _ceil_to(d, 32)
 
 
-@functools.partial(
-    jax.jit,
-    static_argnames=("k", "tile_n", "tile_q", "l_buckets", "int8",
-                     "interpret", "top2"),
-)
-def tiles_topk_pallas(
-    db,
-    queries_sorted,
-    tile_table,  # (n_qt, P) i32 arena-tile ids (duplicates/repeats harmless)
-    k: int,
-    tile_n: int = 2048,
-    tile_q: int = 256,
-    l_buckets: int = 0,
-    int8: bool = False,
-    interpret: bool = False,
-    n_valid=None,  # true row count (traced scalar ok); pad rows masked out
-    top2: bool = False,  # best TWO distinct rows per bucket — candidate
-                         # pool 2·l_buckets (see _merge_top2)
-):
-    """Top-k over per-query-tile selected arena tiles. Same contract as
-    band_topk_pallas but driven by an explicit tile table.
-
-    ``n_valid`` is the number of REAL rows in ``db`` (rows ≥ n_valid are
-    zero padding to a tile_n multiple and must never become candidates:
-    int8 pads score 0, which can outrank real negatives). Defaults to the
-    padded size for callers that pre-mask; index-layer callers always pass
-    the true count. Traced, so add()-driven count changes don't recompile.
-    """
-    n, d = db.shape
-    nq = queries_sorted.shape[0]
-    assert n % tile_n == 0 and nq % tile_q == 0
-    if d % 128:
-        d_pad = _ceil_to(d, 128)
-        db = jnp.zeros((n, d_pad), db.dtype).at[:, :d].set(db)
-        queries_sorted = (
-            jnp.zeros((nq, d_pad), queries_sorted.dtype).at[:, :d].set(queries_sorted)
-        )
-        d = d_pad
-    if l_buckets == 0:
-        l_buckets = tile_n  # R=1: elementwise merge (fastest, biggest pool)
-    l_buckets = min(l_buckets, tile_n)
-    assert tile_n % l_buckets == 0
-    n_qt = nq // tile_q
-    p = tile_table.shape[1]
-    assert tile_table.shape[0] == n_qt
-    nv = jnp.full((1,), n, jnp.int32) if n_valid is None else (
-        jnp.asarray(n_valid, jnp.int32).reshape(1)
-    )
-
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=2,
-        grid=(n_qt, p),
-        in_specs=[
-            pl.BlockSpec((tile_q, d), lambda i, j, tt, nv: (i, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec(
-                (tile_n, d), lambda i, j, tt, nv: (tt[i, j], 0), memory_space=pltpu.VMEM
-            ),
-        ],
-        out_specs=[
-            pl.BlockSpec(((2, tile_q, l_buckets) if top2
-                          else (tile_q, l_buckets)),
-                         (lambda i, j, tt, nv: (0, i, 0)) if top2
-                         else (lambda i, j, tt, nv: (i, 0)),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec(((2, tile_q, l_buckets) if top2
-                          else (tile_q, l_buckets)),
-                         (lambda i, j, tt, nv: (0, i, 0)) if top2
-                         else (lambda i, j, tt, nv: (i, 0)),
-                         memory_space=pltpu.VMEM),
-        ],
-        scratch_shapes=[
-            pltpu.VMEM(((2, tile_q, l_buckets) if top2
-                        else (tile_q, l_buckets)), jnp.float32),
-            pltpu.VMEM(((2, tile_q, l_buckets) if top2
-                        else (tile_q, l_buckets)), jnp.int32),
-        ],
-    )
-    kernel = functools.partial(_tiles_kernel, l_buckets=l_buckets, int8=int8,
-                               top2=top2)
-    out_v, out_i = pl.pallas_call(
-        kernel,
-        grid_spec=grid_spec,
-        out_shape=[
-            jax.ShapeDtypeStruct(((2, nq, l_buckets) if top2
-                                  else (nq, l_buckets)), jnp.float32),
-            jax.ShapeDtypeStruct(((2, nq, l_buckets) if top2
-                                  else (nq, l_buckets)), jnp.int32),
-        ],
-        interpret=interpret,
-    )(tile_table.astype(jnp.int32), nv, queries_sorted, db)
-
-    if top2:  # slots side by side: (nq, 2·l_buckets) candidates per query
-        out_v = jnp.transpose(out_v, (1, 0, 2)).reshape(nq, -1)
-        out_i = jnp.transpose(out_i, (1, 0, 2)).reshape(nq, -1)
-    top_v, pos = lax.top_k(out_v, min(k, (2 if top2 else 1) * l_buckets))
-    top_i = jnp.take_along_axis(out_i, pos, axis=1)
-    return top_v, top_i
+def _pad_features(x, d_pad: int):
+    d = x.shape[-1]
+    if d == d_pad:
+        return x
+    return jnp.pad(x, [(0, 0)] * (x.ndim - 1) + [(0, d_pad - d)])
 
 
-@functools.partial(
-    jax.jit,
-    static_argnames=("k", "tile_n", "tile_q", "l_buckets", "band_tiles", "int8", "interpret"),
-)
-def band_topk_pallas(
-    db,
-    queries_sorted,
-    band_start,  # (n_qt,) i32: first arena tile of each query tile's band
-    k: int,
-    band_tiles: int,  # static max tiles per band (short bands clamp)
-    tile_n: int = 2048,
-    tile_q: int = 256,
-    l_buckets: int = 0,
-    int8: bool = False,
-    interpret: bool = False,
-    n_valid=None,  # true row count (traced scalar ok); pad rows masked out
-):
-    """Scores (Q, k) + arena-row ids (Q, k) for pre-sorted, pre-padded inputs.
-
-    db (N_pad, D) with N_pad % tile_n == 0; queries_sorted (Q_pad, D) with
-    Q_pad % tile_q == 0 — caller handles sorting/padding (see index layer).
-    ``band_start[qt] + band_tiles`` may exceed the arena: caller must clamp
-    band_start to n_tiles - band_tiles. ``n_valid``: see tiles_topk_pallas.
-    """
-    n, d = db.shape
-    nq = queries_sorted.shape[0]
-    assert n % tile_n == 0 and nq % tile_q == 0
-    if d % 128:  # zero-pad the feature axis (IP unchanged); D=768 is a no-op
-        d_pad = _ceil_to(d, 128)
-        db = jnp.zeros((n, d_pad), db.dtype).at[:, :d].set(db)
-        queries_sorted = (
-            jnp.zeros((nq, d_pad), queries_sorted.dtype).at[:, :d].set(queries_sorted)
-        )
-        d = d_pad
-    if l_buckets == 0:
-        l_buckets = tile_n  # R=1: elementwise merge (fastest, biggest pool)
-    l_buckets = min(l_buckets, tile_n)
-    assert tile_n % l_buckets == 0
-    n_qt = nq // tile_q
-    nv = jnp.full((1,), n, jnp.int32) if n_valid is None else (
-        jnp.asarray(n_valid, jnp.int32).reshape(1)
-    )
-
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=2,
-        grid=(n_qt, band_tiles),
-        in_specs=[
-            pl.BlockSpec((tile_q, d), lambda i, j, bs, nv: (i, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec(
-                (tile_n, d), lambda i, j, bs, nv: (bs[i] + j, 0), memory_space=pltpu.VMEM
-            ),
-        ],
-        out_specs=[
-            pl.BlockSpec((tile_q, l_buckets), lambda i, j, bs, nv: (i, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((tile_q, l_buckets), lambda i, j, bs, nv: (i, 0), memory_space=pltpu.VMEM),
-        ],
-        scratch_shapes=[
-            pltpu.VMEM((tile_q, l_buckets), jnp.float32),
-            pltpu.VMEM((tile_q, l_buckets), jnp.int32),
-        ],
-    )
-    kernel = functools.partial(
-        _band_kernel, l_buckets=l_buckets, int8=int8
-    )
-    out_v, out_i = pl.pallas_call(
-        kernel,
-        grid_spec=grid_spec,
-        out_shape=[
-            jax.ShapeDtypeStruct((nq, l_buckets), jnp.float32),
-            jax.ShapeDtypeStruct((nq, l_buckets), jnp.int32),
-        ],
-        interpret=interpret,
-    )(band_start, nv, queries_sorted, db)
-
-    top_v, pos = lax.top_k(out_v, min(k, l_buckets))
-    top_i = jnp.take_along_axis(out_i, pos, axis=1)
-    return top_v, top_i
+def _keep(k: int) -> int:
+    """Per-block top-K width: k rounded up to a power of two, ≥ 16."""
+    return max(16, 1 << max(k - 1, 0).bit_length())
 
 
-def _tiles_resid_kernel(
-    tile_table_ref,  # scalar prefetch: (n_qt, P) arena-tile ids
-    *refs, l_buckets, w_lists, int8_q, masked=False, l2=False, top2=False,
-):
-    """Residual-int8 tiles scan: db rows hold int8 RESIDUALS (row − its list
-    centroid). Residual norms are a fraction of row norms, so the same 8
-    bits carry ~3–4× less quantization noise (measured ceiling at 1M×768:
-    0.981 vs 0.956 recall@10 for whole-row int8). The centroid term is
-    reconstructed exactly in-kernel — an arena tile spans ≤ w_lists lists,
-    local_ref carries each row's local list index:
+def _scan_geometry(nq: int, tile_q: int, tile_n: int, p: int, keep: int):
+    """(bq, bn, n_split, per): query rows and arena rows per block chunk,
+    the number of tile-list slices per group and the tiles per slice.
+    Deep top-Ks (range search) trade query rows for register room."""
+    bq = max(16, min(_BQ, tile_q, 4096 // keep))
+    bn = min(_BN, tile_n)
+    assert tile_q % bq == 0 and tile_n % bn == 0, (tile_q, tile_n)
+    n_qb = nq // bq
+    want = max(1, -(-_FILL_BLOCKS // n_qb))
+    per = -(-p // min(p, want))
+    n_split = -(-p // per)  # every slice non-empty
+    return bq, bn, n_split, per
 
-        scores = (q·C_tile)(Q,W) expanded by one-hot + row_scale · (q · r8ᵀ)
 
-    The CENTROID term always uses unquantized bf16 queries with f32
-    accumulation (it carries the ~1.0-scale part of the score). The
-    RESIDUAL matmul runs on the int8 MXU path when int8_q (2× the bf16
-    rate): query quantization noise lands only on the residual component,
-    attenuated by s_resid — ~4× below the db-side residual noise floor.
-    row_scale folds s_resid (and the per-row query dequant scale when
-    int8_q) so the kernel only multiplies.
+def _widen_groups(x, tile_q: int, rows: int):
+    """(n_qt·tile_q, ...) → (n_qt·rows, ...): zero rows appended to every
+    query group. Kernel blocks need ≥16 query rows; tiny groups (B=4
+    latency batches) grow to 16 and shrink back after the scan."""
+    n_qt = x.shape[0] // tile_q
+    g = x.reshape((n_qt, tile_q) + x.shape[1:])
+    g = jnp.pad(g, [(0, 0), (0, rows - tile_q)] + [(0, 0)] * (x.ndim - 1))
+    return g.reshape((n_qt * rows,) + x.shape[1:])
 
-    Validity is PER LIST, not a global row count: ve_ref (1, W) carries,
-    for each of this tile's lists, the arena row index one past that
-    list's last VALID row. Row g of local list li is live iff
-    g < ve[li]. This masks (a) tail padding to the tile multiple AND
-    (b) interior slack holes that in-place inserts (index layer `add`)
-    have not yet filled — a zero residual reconstructs to the list
-    centroid, a plausible high-IP phantom if left unmasked.
-    """
+
+def _narrow_groups(x, tile_q: int, rows: int):
+    n_qt = x.shape[0] // rows
+    return x.reshape((n_qt, rows) + x.shape[1:])[:, :tile_q].reshape(
+        (n_qt * tile_q,) + x.shape[1:])
+
+
+# -- the Triton kernel ---------------------------------------------------------
+
+def _scan_kernel(*refs, tile_n, tile_q, bq, bn, bk, n_k, per, p, w, nlist,
+                 keep, dot, resid, masked, l2):
+    """One block: queries [qb·bq, +bq) × tiles table[g, s·per : s·per+per).
+
+    dot: 'int8' (int8 × int8 → int32 MMA), 'bf16' (bf16 × bf16, int8 rows
+    widened exactly) or 'f32' (f32 × f32, IEEE). resid: residual-int8 rows
+    (centroid term gathered from qc, per-row valid end from ve); otherwise
+    rows < n_valid are live and scores are the raw dots."""
     rl = list(refs)
-    q_ref = rl.pop(0)
-    q8_ref = rl.pop(0) if int8_q else None
-    db_ref = rl.pop(0)
-    local_ref = rl.pop(0)
+    tt_ref, q_ref, db_ref = rl[0], rl[1], rl[2]
+    rl = rl[3:]
+    if resid:
+        local_ref, tw_ref, ve_ref, qc_ref, rs_ref = rl[:5]
+        rl = rl[5:]
+    else:
+        nv_ref = rl.pop(0)
     mask_ref = rl.pop(0) if masked else None
-    ct_ref = rl.pop(0)
-    scale_ref = rl.pop(0)
-    rs_ref = rl.pop(0) if l2 else None  # (1, 1) GLOBAL residual scale
-    ve_ref = rl.pop(0)
-    out_v_ref, out_i_ref, val_sc, idx_sc = rl
-    j = pl.program_id(1)
-    n_j = pl.num_programs(1)
-
-    @pl.when(j == 0)
-    def _init():
-        val_sc[:] = jnp.full_like(val_sc, NEG_INF)
-        idx_sc[:] = jnp.zeros_like(idx_sc)
-
-    q = q_ref[:]  # (Q, D) bf16
-    if int8_q:
-        r_scores = lax.dot_general(
-            q8_ref[:], db_ref[:], (((1,), (1,)), ((), ())),
-            preferred_element_type=jnp.int32,
-        ).astype(jnp.float32)
-    else:
-        r_scores = lax.dot_general(
-            q, db_ref[:].astype(jnp.bfloat16), (((1,), (1,)), ((), ())),
-            preferred_element_type=jnp.float32,
-        )  # (Q, T)
-    local = local_ref[0, :].astype(jnp.int32)  # (T,)
-    qc = lax.dot_general(
-        q, ct_ref[0], (((1,), (1,)), ((), ())),
-        preferred_element_type=jnp.float32,
-    )  # (Q, D)·(W, D)ᵀ → (Q, W), f32 accumulation
-    # one-hot gather via MXU matmuls, TWO-PASS bf16-split for near-f32
-    # precision: Mosaic's "f32" matmul TRUNCATES operands to one bf16 pass
-    # (measured r5: a naive one-hot f32 matmul rounds the ~1.0-scale q·c
-    # to bf16, abs err ~4e-3 — headline recall 0.955 → 0.567 at 12.5M).
-    # Splitting v = bf16(v) + (v − bf16(v)) makes each pass's products
-    # exact (bf16 value × 1.0) and leaves ≤2^-17 relative error — ~100×
-    # below the int8 residual noise floor. The old unrolled per-wi VPU
-    # loop was exact but materialized W (Q, T) temps — 45 MB of scoped
-    # VMEM at the W=129 tile-span cap (r5, measured OOM on anisotropic
-    # encoder data); the matmul form is W-scalable.
-    w_iota = lax.broadcasted_iota(jnp.int32, (w_lists, local.shape[0]), 0)
-    onehot = (w_iota == local[None, :]).astype(jnp.float32)  # (W, T)
-
-    def oh_dot(vals):  # (R, W) f32 → (R, T) single-pass gather matmul
-        return lax.dot_general(
-            vals, onehot, (((1,), (0,)), ((), ())),
-            preferred_element_type=jnp.float32)
-
-    def oh_gather(vals):  # two-pass split: exact to ~2^-17 relative
-        hi = vals.astype(jnp.bfloat16).astype(jnp.float32)
-        return oh_dot(hi) + oh_dot(vals - hi)
-
-    c_scores = oh_gather(qc)  # (Q, T)
-    scores = c_scores + scale_ref[:] * r_scores
     if l2:
-        # L2 ranking key q·x̂ − ‖x̂‖²/2 (argmin ‖q−x̂‖² ≡ argmax of it):
-        # the bias derives ENTIRELY from data already in VMEM — x̂ = c + s·r
-        # gives ‖x̂‖² = ‖c‖² + 2s·(c·r) + s²‖r‖² with c the row's list
-        # centroid and s the GLOBAL residual scale (rs_ref; scale_ref folds
-        # the per-QUERY dequant and must not touch the bias). No stored
-        # norms → zero mutation-path/persistence plumbing. All terms stay
-        # in the (1, T) lane layout via (1, D)·(D, T) matmul reductions —
-        # a jnp.sum(axis=1) would land (T,) in sublanes and need a Mosaic
-        # relayout to broadcast against (Q, T) scores. Cost: (W+1) skinny
-        # matmuls ≈ 13% of the main matmul at W=16, L2 searches only.
-        s = rs_ref[0, 0]
-        r32 = db_ref[:].astype(jnp.float32)  # int8 exact in f32
-        ones = jnp.ones((1, r32.shape[1]), jnp.float32)
-        bias = (-0.5 * s * s) * lax.dot_general(
-            ones, r32 * r32, (((1,), (1,)), ((), ())),
-            preferred_element_type=jnp.float32,
-        )  # (1, T) = −s²‖r‖²/2
-        ct32 = ct_ref[0].astype(jnp.float32)  # (W, D)
-        # c_{local[t]}·r_t: one (W, D)·(D, T) matmul + a one-hot row select
-        # (W-scalable — the per-wi skinny-matmul loop cost W kernel passes)
-        ctr = lax.dot_general(
-            ct32, r32, (((1,), (1,)), ((), ())),
-            preferred_element_type=jnp.float32,
-        )  # (W, T)
-        sel_cr = jnp.sum(onehot * ctr, axis=0, keepdims=True)  # (1, T)
-        ones_d = jnp.ones((1, ct32.shape[1]), jnp.float32)
-        cc = lax.dot_general(
-            ones_d, ct32 * ct32, (((1,), (1,)), ((), ())),
-            preferred_element_type=jnp.float32,
-        )  # (1, W) = ‖c_w‖²
-        cc_row = oh_gather(cc)  # (1, T), two-pass split (bf16-trunc matmul)
-        bias = bias - s * sel_cr - 0.5 * cc_row
-        scores = scores + bias
+        cent_ref, csq_ref, s_ref = rl[:3]
+        rl = rl[3:]
+    out_v_ref, out_i_ref = rl
 
-    tile_sz = scores.shape[1]
-    # per-row valid end: ve of the row's local list, gathered int32-EXACTLY
-    # through the bf16-truncating matmul by an 8-BIT RADIX split — each
-    # digit ≤ 255 is exact in bf16 (the r5 recall collapse: a 12-bit hi/lo
-    # split left hi ≈ 3052 at 12.5M rows, which bf16 rounds to multiples
-    # of 16 — valid-end cutoffs shifted ±32k rows). Covers 2^32 rows.
-    vei = ve_ref[0, 0, :]  # (W,) i32
-    ve_row = jnp.zeros((1, tile_sz), jnp.int32)
-    for shift in (24, 16, 8, 0):
-        digit = ((vei >> shift) & 0xFF).astype(jnp.float32)[None, :]
-        ve_row = ve_row + (oh_dot(digit).astype(jnp.int32) << shift)
-    if masked:
-        # filtered search: per-row allow bit in arena order (tile_n int8
-        # per tile — 0.13% of the payload's HBM traffic). Folded into the
-        # EXISTING validity threshold (ve 0 masks the row in the g<ve
-        # compare below) — one (T,) i32 multiply, no extra (Q, T) select
-        # pass (a scores-level where cost ~20% QPS at the headline op
-        # point, measured). int8→i32 widen: v5e Mosaic rejects vector
-        # cmpi on i8.
-        ve_row = ve_row * mask_ref[:].astype(jnp.int32)  # (1, T)
-    qt = pl.program_id(0)
-    at = tile_table_ref[qt, j]
-    rows_per_bucket = tile_sz // l_buckets
-    base = at * tile_sz
-    mx2 = new_idx2 = None
-    if rows_per_bucket == 1:
-        g = base + lax.broadcasted_iota(jnp.int32, scores.shape, 1)
-        mx = jnp.where(g < ve_row, scores, NEG_INF)  # ve_row (1, T)
-        new_idx = g
-        if top2:
-            mx2 = jnp.full_like(mx, NEG_INF)
-            new_idx2 = jnp.zeros_like(new_idx)
-    else:
-        # per-row cutoff VECTOR (ve_row): compare in the 2-D (Q, T) domain
-        # BEFORE the bucket reshape — reshaping the (T,) cutoff to 3-D is a
-        # vector shape cast Mosaic rejects for l_buckets > 128 (measured on
-        # v5e: (1024,)→(1, 4, 256) fails; the 128-lane minor happened to
-        # work, which is all the headline op points ever exercised).
-        g2 = base + lax.broadcasted_iota(jnp.int32, scores.shape, 1)
-        scores = jnp.where(g2 < ve_row, scores, NEG_INF)  # ve_row (1, T)
-        s3 = scores.reshape(scores.shape[0], rows_per_bucket, l_buckets)
-        mx = jnp.max(s3, axis=1)
-        is_max = s3 >= mx[:, None, :]
-        r_iota = lax.broadcasted_iota(jnp.int32, s3.shape, 1)
-        r_star = jnp.min(jnp.where(is_max, r_iota, rows_per_bucket), axis=1)
-        new_idx = base + r_star * l_buckets + lax.broadcasted_iota(
-            jnp.int32, mx.shape, 1)
-        if top2:
-            mx2, new_idx2 = _tile_second_best(s3, r_iota, r_star, base,
-                                              l_buckets)
-    if top2:
-        _merge_top2(val_sc, idx_sc, mx, new_idx, mx2, new_idx2)
-    else:
-        better = mx > val_sc[:]
-        val_sc[:] = jnp.where(better, mx, val_sc[:])
-        idx_sc[:] = jnp.where(better, new_idx, idx_sc[:])
+    qb = pl.program_id(0)
+    sp = pl.program_id(1)
+    q0 = qb * bq
+    grp = lax.div(q0, tile_q)  # lax.div/rem: jnp's floor forms don't lower
+    lo = sp * per
+    hi = jnp.minimum(lo + per, p)
+    n_c = tile_n // bn
+    lane = lax.broadcasted_iota(jnp.int32, (bn,), 0)
+    acc_t = jnp.int32 if dot == "int8" else jnp.float32
 
-    @pl.when(j == n_j - 1)
-    def _emit():
-        out_v_ref[:] = val_sc[:]
-        out_i_ref[:] = idx_sc[:]
+    def chunk(it, carry):
+        t = tt_ref[grp, lo + lax.div(it, n_c)]
+        row0 = t * tile_n + lax.rem(it, n_c) * bn
+
+        def kstep(kk, kc):
+            a = q_ref[pl.ds(q0, bq), pl.ds(kk * bk, bk)]
+            b = db_ref[pl.ds(row0, bn), pl.ds(kk * bk, bk)]
+            r32 = b.astype(jnp.float32) if l2 else None
+            if dot == "bf16":
+                b = b.astype(jnp.bfloat16)
+            # f32 operands: HIGHEST selects IEEE f32 (DEFAULT lowers to TF32)
+            acc = kc[0] + lax.dot_general(
+                a, b, (((1,), (1,)), ((), ())), preferred_element_type=acc_t,
+                precision=lax.Precision.HIGHEST if dot == "f32" else None)
+            if not l2:
+                return (acc,)
+            c = cent_ref[lists[:, None] * (n_k * bk)
+                         + (kk * bk + lax.broadcasted_iota(
+                             jnp.int32, (bn, bk), 1))]
+            return (acc, kc[1] + jnp.sum(r32 * r32, axis=1),
+                    kc[2] + jnp.sum(c * r32, axis=1))
+
+        rows = row0 + lane
+        if resid:
+            loc = local_ref[pl.ds(row0, bn)].astype(jnp.int32)
+            lists = tw_ref[t * w + loc]
+            live = rows < ve_ref[t * w + loc]
+        else:
+            lists = None
+            live = rows < nv_ref[0]
+        init = (jnp.zeros((bq, bn), acc_t),)
+        if l2:
+            init += (jnp.zeros((bn,), jnp.float32),) * 2
+        kc = lax.fori_loop(0, n_k, kstep, init)
+        score = kc[0].astype(jnp.float32)
+        if resid:
+            qrow = q0 + lax.broadcasted_iota(jnp.int32, (bq, bn), 0)
+            score = (qc_ref[qrow * nlist + lists[None, :]]
+                     + rs_ref[pl.ds(q0, bq)][:, None] * score)
+            if l2:
+                s = s_ref[0]
+                bias = (-0.5 * s * s) * kc[1] - s * kc[2] - 0.5 * csq_ref[lists]
+                score = score + bias[None, :]
+        if masked:
+            live = jnp.logical_and(live, mask_ref[pl.ds(row0, bn)] != 0)
+        score = jnp.where(live[None, :], score, NEG_INF)
+
+        # exact top-K insertion: while any score beats its query's current
+        # K-th best, move each query's best remaining score into its worst
+        # slot. After the first chunks almost every chunk exits at once.
+        def beats(c):
+            tv, _, sc = c
+            hit = (sc > jnp.min(tv, axis=1)[:, None]).astype(jnp.int32)
+            return jnp.max(hit) > 0  # no reduce_or in the Triton lowering
+
+        def insert(c):
+            tv, ti, sc = c
+            worst = jnp.min(tv, axis=1)
+            slot = jnp.argmin(tv, axis=1)
+            best = jnp.max(sc, axis=1)
+            at = jnp.argmax(sc, axis=1)
+            put = jnp.logical_and((best > worst)[:, None],
+                                  kslot[None, :] == slot[:, None])
+            tv = jnp.where(put, best[:, None], tv)
+            ti = jnp.where(put, (row0 + at)[:, None], ti)
+            sc = jnp.where(lane[None, :] == at[:, None], NEG_INF, sc)
+            return tv, ti, sc
+
+        tv, ti, _ = lax.while_loop(beats, insert, (carry[0], carry[1], score))
+        return tv, ti
+
+    kslot = lax.broadcasted_iota(jnp.int32, (keep,), 0)
+    state = (jnp.full((bq, keep), NEG_INF, jnp.float32),
+             jnp.zeros((bq, keep), jnp.int32))
+    tv, ti = lax.fori_loop(0, (hi - lo) * n_c, chunk, state)
+    cols = pl.ds(sp * keep, keep)
+    out_v_ref[pl.ds(q0, bq), cols] = tv
+    out_i_ref[pl.ds(q0, bq), cols] = ti
+
+
+def _run_scan(q, db, tile_table, extra, *, k, tile_n, tile_q, dot, resid,
+              masked, l2, w, nlist, interpret):
+    """pallas_call plumbing shared by both arena families; returns the
+    (Q, n_split·K) candidate scores and arena rows."""
+    from jax.experimental.pallas import triton as plgpu
+
+    nq, d = q.shape
+    p = tile_table.shape[1]
+    bk, d_pad = _feature_chunk(d, f32=dot == "f32")
+    assert d_pad == d, "callers pad the feature axis"
+    keep = _keep(k)
+    bq, bn, n_split, per = _scan_geometry(nq, tile_q, tile_n, p, keep)
+    width = n_split * keep
+    kernel = functools.partial(
+        _scan_kernel, tile_n=tile_n, tile_q=tile_q, bq=bq, bn=bn, bk=bk,
+        n_k=d // bk, per=per, p=p, w=w, nlist=nlist, keep=keep, dot=dot,
+        resid=resid, masked=masked, l2=l2)
+    return pl.pallas_call(
+        kernel,
+        out_shape=[jax.ShapeDtypeStruct((nq, width), jnp.float32),
+                   jax.ShapeDtypeStruct((nq, width), jnp.int32)],
+        grid=(nq // bq, n_split),
+        backend="triton",
+        compiler_params=plgpu.CompilerParams(num_warps=_NUM_WARPS,
+                                             num_stages=_NUM_STAGES),
+        interpret=interpret,
+        name="tile_scan",
+    )(tile_table.astype(jnp.int32), q, db, *extra)
+
+
+# -- the plain-XLA form --------------------------------------------------------
+
+def _group_scores(qg, tt_row, db, *, tile_n, dot, score_fn):
+    """Scores of one query group against its tiles: (tq, P·tile_n) and the
+    arena row of each column. score_fn(score, rows) applies the family's
+    centroid term, bias and validity."""
+    rows = (tt_row[:, None] * tile_n
+            + jnp.arange(tile_n, dtype=jnp.int32)[None, :]).reshape(-1)
+    r = db[rows]
+    if dot == "int8":
+        s = lax.dot_general(qg, r, (((1,), (1,)), ((), ())),
+                            preferred_element_type=jnp.int32)
+    else:
+        s = lax.dot_general(
+            qg, r.astype(qg.dtype), (((1,), (1,)), ((), ())),
+            preferred_element_type=jnp.float32,
+            precision=lax.Precision.HIGHEST)
+    return score_fn(s.astype(jnp.float32), rows, r), rows
+
+
+def _xla_scan(q, db, tile_table, *, k, tile_n, tile_q, dot, score_fn,
+              per_group=(), slices=None):
+    """lax.map over query groups (bounded temps): exact top-k per query,
+    or (slices=(n_split, per)) the kernel's per-slice top-K
+    candidates."""
+    n_qt = tile_table.shape[0]
+    d = q.shape[1]
+
+    def body(args):
+        qg, tt_row, *pg = args
+        s, rows = _group_scores(
+            qg, tt_row, db, tile_n=tile_n, dot=dot,
+            score_fn=lambda sc, rw, r: score_fn(sc, rw, r, *pg))
+        if slices is None:
+            v, pos = lax.top_k(s, min(k, s.shape[1]))
+            return v, rows[pos]
+        return _slice_topk(s, rows, p=tt_row.shape[0], keep=_keep(k),
+                           slices=slices)
+
+    xs = (q.reshape(n_qt, tile_q, d), tile_table) + tuple(
+        a.reshape((n_qt, tile_q) + a.shape[1:]) for a in per_group)
+    v, i = lax.map(body, xs)
+    return v.reshape(n_qt * tile_q, -1), i.reshape(n_qt * tile_q, -1)
+
+
+def _slice_topk(s, rows, *, p, keep, slices):
+    """The kernel's output in plain form: each (query, slice) keeps its
+    exact top-K; empty slots hold (-inf, row 0)."""
+    n_split, per = slices
+    tq = s.shape[0]
+    tile_n = s.shape[1] // p
+    pad = (n_split * per - p) * tile_n
+    s = jnp.pad(s, ((0, 0), (0, pad)), constant_values=NEG_INF)
+    r = jnp.pad(rows, (0, pad))
+    v, pos = lax.top_k(s.reshape(tq, n_split, per * tile_n), keep)
+    i = r.reshape(n_split, per * tile_n)[jnp.arange(n_split)[None, :, None],
+                                         pos]
+    i = jnp.where(v > NEG_INF, i, 0)
+    return v.reshape(tq, -1), i.reshape(tq, -1)
+
+
+def _ref_slices(nq, k, tile_q, tile_n, tile_table, candidates):
+    """The kernel's slice geometry (after _widen_groups), or None for the
+    final top-k."""
+    if not candidates:
+        return None
+    rows = max(16, tile_q)
+    _, _, n_split, per = _scan_geometry(nq // tile_q * rows, rows, tile_n,
+                                        tile_table.shape[1], _keep(k))
+    return n_split, per
+
+
+def _finish(v, i, k, scanned):
+    """Final top-k over the blocks' candidates; never wider than the rows
+    the plan scanned (the plain form's width)."""
+    kk = min(k, v.shape[1], scanned)
+    top_v, pos = lax.top_k(v, kk)
+    return top_v, jnp.take_along_axis(i, pos, axis=1)
+
+
+def _plain_inputs(db, queries_sorted, int8):
+    """(dot kind, query operand) of the whole-row families."""
+    if int8 == "hybrid":
+        return "bf16", queries_sorted.astype(jnp.bfloat16)
+    if int8:
+        return "int8", queries_sorted.astype(jnp.int8)
+    if db.dtype == jnp.float32:
+        return "f32", queries_sorted.astype(jnp.float32)
+    return "bf16", queries_sorted.astype(db.dtype)
+
+
+def _prepare(q, db, tile_q):
+    """Pad the feature axis to a chunk multiple and tiny query groups to
+    16 rows (see _widen_groups); returns (q, db, rows per group)."""
+    _, d_pad = _feature_chunk(q.shape[1])
+    q, db = _pad_features(q, d_pad), _pad_features(db, d_pad)
+    rows = max(16, tile_q)
+    if rows != tile_q:
+        q = _widen_groups(q, tile_q, rows)
+    return q, db, rows
 
 
 @functools.partial(
     jax.jit,
-    static_argnames=("k", "tile_n", "tile_q", "l_buckets", "interpret",
-                     "int8_q", "l2", "top2"),
+    static_argnames=("k", "tile_n", "tile_q", "int8", "impl", "candidates"),
 )
-def tiles_topk_resid_pallas(
+def tiles_topk(
+    db,
+    queries_sorted,
+    tile_table,  # (n_qt, P) i32 arena-tile ids
+    k: int,
+    *,
+    tile_n: int,
+    tile_q: int,
+    int8=False,  # True: int8 queries (callers quantize); 'hybrid': bf16
+                 # queries × int8 rows; False: rows' own float dtype
+    impl: str,
+    n_valid=None,  # true row count (traced scalar ok); pad rows masked out
+    candidates: bool = False,  # see tiles_topk_resid
+):
+    """Top-k over each query group's tiles of a whole-row arena.
+
+    Returns (raw dot scores (Q, k) f32, arena rows (Q, k) i32); callers
+    apply their quantization scales. ``n_valid`` is the number of REAL rows
+    in ``db`` (rows ≥ n_valid are zero padding to a tile_n multiple and
+    must never become candidates: int8 pads score 0, which can outrank
+    real negatives). Traced, so add()-driven count changes don't
+    recompile."""
+    n = db.shape[0]
+    assert n % tile_n == 0 and queries_sorted.shape[0] % tile_q == 0
+    nv = jnp.asarray(n if n_valid is None else n_valid, jnp.int32)
+    dot, q = _plain_inputs(db, queries_sorted, int8)
+
+    if impl == "xla":
+        def score_fn(s, rows, r):
+            return jnp.where((rows < nv)[None, :], s, NEG_INF)
+
+        return _xla_scan(q, db, tile_table, k=k, tile_n=tile_n,
+                         tile_q=tile_q, dot=dot, score_fn=score_fn,
+                         slices=_ref_slices(q.shape[0], k, tile_q, tile_n,
+                                            tile_table, candidates))
+    q, db, rows = _prepare(q, db, tile_q)
+    v, i = _run_scan(q, db, tile_table, [nv.reshape(1)], k=k, tile_n=tile_n,
+                     tile_q=rows, dot=dot, resid=False, masked=False,
+                     l2=False, w=0, nlist=0, interpret=impl == "interpret")
+    if rows != tile_q:
+        v, i = _narrow_groups(v, tile_q, rows), _narrow_groups(i, tile_q, rows)
+    if candidates:
+        return v, i
+    return _finish(v, i, k, tile_table.shape[1] * tile_n)
+
+
+def _resid_operands(queries_sorted, resid_scale, int8_q):
+    """Query operand and per-query score scale of the residual scan: int8_q
+    quantizes each query to int8 (scale folded with the residual scale);
+    otherwise bf16 queries × int8 rows."""
+    qf = queries_sorted.astype(jnp.float32)
+    s = jnp.asarray(resid_scale, jnp.float32)
+    if int8_q:
+        q_amax = jnp.maximum(jnp.max(jnp.abs(qf), axis=1), 1e-12)
+        q8 = jnp.clip(jnp.round(qf * (127.0 / q_amax)[:, None]),
+                      -127, 127).astype(jnp.int8)
+        return "int8", q8, (q_amax / 127.0) * s
+    return "bf16", qf.astype(jnp.bfloat16), jnp.full(qf.shape[:1], s)
+
+
+def _resid_score_fn(local_ids, tile_window, valid_end, tile_n, row_mask,
+                    l2, centroids, resid_scale):
+    """Plain-form residual scoring: mirrors the kernel's arithmetic."""
+    w = tile_window.shape[1]
+
+    def score_fn(s, rows, r, qc_g, rs_g):
+        t = rows // tile_n
+        loc = local_ids[0, rows].astype(jnp.int32)
+        lists = tile_window.reshape(-1)[t * w + loc]
+        live = rows < valid_end.reshape(-1)[t * w + loc]
+        if row_mask is not None:
+            live = jnp.logical_and(live, row_mask[0, rows] != 0)
+        score = jnp.take(qc_g, lists, axis=1) + rs_g[:, None] * s
+        if l2:
+            sc = jnp.asarray(resid_scale, jnp.float32)
+            r32 = r.astype(jnp.float32)
+            c = centroids[lists]
+            cr = jnp.sum(c * r32[:, : c.shape[1]], axis=1)
+            bias = ((-0.5 * sc * sc) * jnp.sum(r32 * r32, axis=1) - sc * cr
+                    - 0.5 * jnp.sum(c * c, axis=1))
+            score = score + bias[None, :]
+        return jnp.where(live[None, :], score, NEG_INF)
+
+    return score_fn
+
+
+@functools.partial(
+    jax.jit,
+    static_argnames=("k", "tile_n", "tile_q", "impl", "int8_q", "l2",
+                     "candidates"),
+)
+def tiles_topk_resid(
     db_resid,        # (N_pad, D) int8 residual rows
     local_ids,       # (1, N_pad) uint8: per-row local list idx within tile
-    centroid_tiles,  # (n_tiles, W, D) bf16 per-tile list centroids (D minor:
-                     # a W-minor layout pads W→128 lanes in HBM, 21× blowup)
-    resid_scale,     # () f32 residual dequant scale
-    queries_sorted,  # (Q_pad, D) f32/bf16 pre-sorted queries
-    tile_table,      # (n_qt, P) i32
-    k: int,
+    tile_window,     # (n_tiles, W) i32: global list id of each local idx
     valid_end,       # (n_tiles, W) i32: one past each tile-list's last VALID
                      # arena row — masks tail padding AND interior slack
-                     # holes left for in-place inserts (kernel doc)
-    tile_n: int = 2048,
-    tile_q: int = 256,
-    l_buckets: int = 0,
-    interpret: bool = False,
-    int8_q: bool = True,  # residual matmul on the int8 MXU path (2× rate)
+                     # holes left for in-place inserts
+    qc_sorted,       # (Q, nlist) f32 q·centroid dots, in sorted query order
+    resid_scale,     # () f32 residual dequant scale
+    queries_sorted,  # (Q, D) f32/bf16 pre-sorted queries
+    tile_table,      # (n_qt, P) i32
+    k: int,
+    *,
+    tile_n: int,
+    tile_q: int,
+    impl: str,
+    int8_q: bool = True,  # residual dot on int8 tensor cores (else bf16)
     row_mask=None,   # (1, N_pad) int8 arena-order allow bits (filtered
                      # search) — None compiles the unmasked kernel
-    l2: bool = False,  # L2 metric: in-kernel ranking key q·x̂ − ‖x̂‖²/2
-                       # (kernel doc); scores return as the key, callers
-                       # convert to −‖q−x̂‖² with their own ‖q‖². Converted
-                       # scores carry the quantized path's ABSOLUTE noise
-                       # ~(‖q‖+‖x̂‖)·‖x̂‖·2⁻⁸ (bf16 inputs + int8 query
-                       # rounding; measured on-chip ≤0.25× that bound) —
-                       # ranking-safe, but near-duplicate distances (‖q−x̂‖²
-                       # ≈ 0) see it as large RELATIVE error by cancellation
-    top2: bool = False,  # best TWO distinct rows per bucket — candidate
-                         # pool 2·l_buckets (see _merge_top2)
+    l2: bool = False,  # L2 metric: ranking key q·x̂ − ‖x̂‖²/2, x̂ = c + s·r;
+                       # scores return as the key, callers convert to
+                       # −‖q−x̂‖² with their own ‖q‖²
+    centroids=None,  # (nlist, D) f32: the l2 bias's c·r and ‖c‖² terms
+    candidates: bool = False,  # return the kernel's per-slice top-K
+                               # (kernel parity checks) instead of top-k
 ):
-    """Top-k over residual-int8 arena tiles (see _tiles_resid_kernel)."""
+    """Top-k over residual-int8 arena tiles: score = q·c_list(row) +
+    s·(q·r_row), with the centroid term gathered from ``qc_sorted``."""
     n, d = db_resid.shape
     nq = queries_sorted.shape[0]
     assert n % tile_n == 0 and nq % tile_q == 0
-    if d % 128:  # zero-pad the feature axis (IP unchanged); D=768 is a no-op
-        d_pad = _ceil_to(d, 128)
-        db_resid = jnp.zeros((n, d_pad), db_resid.dtype).at[:, :d].set(db_resid)
-        queries_sorted = (
-            jnp.zeros((nq, d_pad), queries_sorted.dtype).at[:, :d].set(queries_sorted)
-        )
-        centroid_tiles = (
-            jnp.zeros((centroid_tiles.shape[0], centroid_tiles.shape[1], d_pad),
-                      centroid_tiles.dtype).at[:, :, :d].set(centroid_tiles)
-        )
-        d = d_pad
-    if l_buckets == 0:
-        l_buckets = tile_n
-    l_buckets = min(l_buckets, tile_n)
-    assert tile_n % l_buckets == 0
-    n_qt = nq // tile_q
-    p = tile_table.shape[1]
-    w = int(centroid_tiles.shape[1])
-    assert valid_end.shape == (centroid_tiles.shape[0], w), (
-        valid_end.shape, centroid_tiles.shape)
-    qf = queries_sorted.astype(jnp.float32)
-    if int8_q:
-        q_amax = jnp.maximum(jnp.max(jnp.abs(qf), axis=1, keepdims=True), 1e-12)
-        q8 = jnp.clip(jnp.round(qf * (127.0 / q_amax)), -127, 127).astype(jnp.int8)
-        # fold s_resid and the per-row query dequant into one row scale
-        row_scale = (q_amax / 127.0) * jnp.asarray(resid_scale, jnp.float32)
-    else:
-        row_scale = jnp.full((nq, 1), jnp.asarray(resid_scale, jnp.float32))
+    assert not l2 or centroids is not None
+    dot, q, rs = _resid_operands(queries_sorted, resid_scale, int8_q)
+    if impl == "xla":
+        fn = _resid_score_fn(local_ids, tile_window, valid_end, tile_n,
+                             row_mask, l2, centroids, resid_scale)
+        return _xla_scan(q, db_resid, tile_table, k=k, tile_n=tile_n,
+                         tile_q=tile_q, dot=dot, score_fn=fn,
+                         per_group=(qc_sorted.astype(jnp.float32), rs),
+                         slices=_ref_slices(nq, k, tile_q, tile_n,
+                                            tile_table, candidates))
 
-    q_spec = pl.BlockSpec((tile_q, d), lambda i, j, tt: (i, 0),
-                          memory_space=pltpu.VMEM)
-    in_specs = [q_spec]
-    if int8_q:
-        in_specs.append(q_spec)  # q8 rides alongside the bf16 queries
-    in_specs += [
-        pl.BlockSpec((tile_n, d), lambda i, j, tt: (tt[i, j], 0),
-                     memory_space=pltpu.VMEM),
-        pl.BlockSpec((1, tile_n), lambda i, j, tt: (0, tt[i, j]),
-                     memory_space=pltpu.VMEM),
-    ]
-    if row_mask is not None:  # allow bits ride the local_ids layout
-        in_specs.append(pl.BlockSpec((1, tile_n), lambda i, j, tt:
-                                     (0, tt[i, j]),
-                                     memory_space=pltpu.VMEM))
-    in_specs += [
-        pl.BlockSpec((1, w, d), lambda i, j, tt: (tt[i, j], 0, 0),
-                     memory_space=pltpu.VMEM),
-        pl.BlockSpec((tile_q, 1), lambda i, j, tt: (i, 0),
-                     memory_space=pltpu.VMEM),
-    ]
-    if l2:  # global residual scale (the bias term needs it un-folded)
-        in_specs.append(pl.BlockSpec((1, 1), lambda i, j, tt: (0, 0),
-                                     memory_space=pltpu.VMEM))
-    in_specs += [
-        pl.BlockSpec((1, 1, w), lambda i, j, tt: (tt[i, j], 0, 0),
-                     memory_space=pltpu.VMEM),  # valid_end as (n_tiles,1,W):
-        # Mosaic requires the last two block dims to equal the array dims
-        # (W is small and never 128-divisible)
-    ]
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=1,
-        grid=(n_qt, p),
-        in_specs=in_specs,
-        out_specs=[
-            pl.BlockSpec(((2, tile_q, l_buckets) if top2
-                          else (tile_q, l_buckets)),
-                         (lambda i, j, tt: (0, i, 0)) if top2
-                         else (lambda i, j, tt: (i, 0)),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec(((2, tile_q, l_buckets) if top2
-                          else (tile_q, l_buckets)),
-                         (lambda i, j, tt: (0, i, 0)) if top2
-                         else (lambda i, j, tt: (i, 0)),
-                         memory_space=pltpu.VMEM),
-        ],
-        scratch_shapes=[
-            pltpu.VMEM(((2, tile_q, l_buckets) if top2
-                        else (tile_q, l_buckets)), jnp.float32),
-            pltpu.VMEM(((2, tile_q, l_buckets) if top2
-                        else (tile_q, l_buckets)), jnp.int32),
-        ],
-    )
-    kernel = functools.partial(
-        _tiles_resid_kernel, l_buckets=l_buckets, w_lists=w, int8_q=int8_q,
-        masked=row_mask is not None, l2=l2, top2=top2,
-    )
-    args = [tile_table.astype(jnp.int32), qf.astype(jnp.bfloat16)]
-    if int8_q:
-        args.append(q8)
-    args += [db_resid, local_ids]
+    q, db, rows = _prepare(q, db_resid, tile_q)
+    qc = qc_sorted.astype(jnp.float32)
+    if rows != tile_q:
+        qc = _widen_groups(qc, tile_q, rows)
+        rs = _widen_groups(rs, tile_q, rows)
+    extra = [local_ids.reshape(-1), tile_window.astype(jnp.int32).reshape(-1),
+             valid_end.astype(jnp.int32).reshape(-1), qc.reshape(-1), rs]
     if row_mask is not None:
-        args.append(row_mask.astype(jnp.int8))
-    args += [centroid_tiles.astype(jnp.bfloat16), row_scale]
+        extra.append(row_mask.astype(jnp.int8).reshape(-1))
     if l2:
-        args.append(jnp.asarray(resid_scale, jnp.float32).reshape(1, 1))
-    args += [valid_end.astype(jnp.int32).reshape(valid_end.shape[0], 1, w)]
-    out_v, out_i = pl.pallas_call(
-        kernel,
-        grid_spec=grid_spec,
-        out_shape=[
-            jax.ShapeDtypeStruct(((2, nq, l_buckets) if top2
-                                  else (nq, l_buckets)), jnp.float32),
-            jax.ShapeDtypeStruct(((2, nq, l_buckets) if top2
-                                  else (nq, l_buckets)), jnp.int32),
-        ],
-        interpret=interpret,
-    )(*args)
+        c = centroids.astype(jnp.float32)
+        extra += [_pad_features(c, q.shape[1]).reshape(-1),
+                  jnp.sum(c * c, axis=1),
+                  jnp.asarray(resid_scale, jnp.float32).reshape(1)]
+    v, i = _run_scan(q, db, tile_table, extra, k=k, tile_n=tile_n,
+                     tile_q=rows, dot=dot, resid=True,
+                     masked=row_mask is not None, l2=l2,
+                     w=int(tile_window.shape[1]),
+                     nlist=int(qc_sorted.shape[1]),
+                     interpret=impl == "interpret")
+    if rows != tile_q:
+        v, i = _narrow_groups(v, tile_q, rows), _narrow_groups(i, tile_q, rows)
+    if candidates:
+        return v, i
+    return _finish(v, i, k, tile_table.shape[1] * tile_n)
 
-    if top2:  # slots side by side: (nq, 2·l_buckets) candidates per query
-        out_v = jnp.transpose(out_v, (1, 0, 2)).reshape(nq, -1)
-        out_i = jnp.transpose(out_i, (1, 0, 2)).reshape(nq, -1)
-    top_v, pos = lax.top_k(out_v, min(k, (2 if top2 else 1) * l_buckets))
-    top_i = jnp.take_along_axis(out_i, pos, axis=1)
-    return top_v, top_i
+

@@ -1,7 +1,7 @@
 """L1 mesh & collectives: device mesh, sharding rules, distributed query path.
 
 All collective use is confined to this package (SURVEY.md §5.8) so the
-single-device, simulated-CPU-mesh, and real v5e-8 paths share code.
+single-device, simulated-CPU-mesh, and multi-GPU paths share code.
 """
 
 from cloudvectordb_tpu.parallel.mesh import (  # noqa: F401

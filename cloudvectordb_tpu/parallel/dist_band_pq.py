@@ -9,7 +9,7 @@ centroids, tier-1/tier-2 PQ codebooks) trained ONCE and replicated:
 
 - per-shard arenas hold GLOBAL ids and scan with the same tile-table PQ
   kernel under ``shard_map``; the partial top-k merges with one all_gather
-  over ICI (S·B·k floats) — identical collective shape to the band family
+  (S·B·k floats) — identical collective shape to the band family
   (dist_band.py) and the probe-scan family (dist_ivf.py);
 - gid-keyed refine tiers (tier-2 codes, host rows, int8 rows) are owned by
   the WRAPPER in per-shard insertion-order stores and permuted into ARENA
@@ -24,9 +24,8 @@ centroids, tier-1/tier-2 PQ codebooks) trained ONCE and replicated:
   host store (per-chip PCIe traffic = B·k_host·dim bytes, same as the
   single-chip case) and exactly rescored + merged on the mesh.
 
-HBM budget per chip at 125M rows (m=64, m2=32, 768-d): 8 GB tier-1 codes +
-4 GB tier-2 codes + 0.5 GB ids + ~0.4 GB centroid tiles ≈ 12.9 GB of 16 —
-the same arithmetic as the single-chip config-#5 bench (ROUND3.md), now
+Device memory per card at 125M rows (m=64, m2=32, 768-d): 8 GB tier-1
+codes + 4 GB tier-2 codes + 0.5 GB ids + ~0.4 GB centroid tiles ≈ 12.9 GB,
 with the aggregate 1B object build/serve/save/reshard-able.
 """
 
@@ -51,23 +50,23 @@ from cloudvectordb_tpu.parallel.mesh import make_mesh
 @functools.partial(
     jax.jit,
     static_argnames=(
-        "k", "k_cand", "k_out", "p_tiles", "tile_n", "tile_q", "interpret",
-        "mesh", "refine_scale", "segmented", "n_pools", "l_buckets",
-        "refine_residual", "l2", "top2", "use_pq2", "stack_out",
+        "k", "k_cand", "k_out", "p_tiles", "tile_n", "tile_q",
+        "mesh", "refine_scale", "segmented",
+        "refine_residual", "l2", "use_pq2", "stack_out",
     ),
 )
 def _sharded_pq_tiles_search(
     q, centroids, codebooks, codes, ids, tile_window, n_valid,
     centroid_tiles=None, local_rm=None, refine_rows=None,
     codes2=None, codebooks2=None, s2=None, row_mask=None,
-    *, k, k_cand, k_out, p_tiles, tile_n, tile_q, interpret, mesh,
-    refine_scale: float, segmented: bool, n_pools: int, l_buckets: int,
-    refine_residual: bool, l2: bool, top2: bool, use_pq2: bool,
+    *, k, k_cand, k_out, p_tiles, tile_n, tile_q, mesh,
+    refine_scale: float, segmented: bool,
+    refine_residual: bool, l2: bool, use_pq2: bool,
     stack_out: bool,
 ):
-    """The sharded config-#5 program: per-shard plan + PQ-tiles kernel
+    """The sharded config-#5 program: per-shard plan + PQ-tiles scan
     (+ arena-ordered tier-2 rescore) + global-id map, then either the
-    cross-shard top-k merge (stack_out=False — one all_gather over ICI) or
+    cross-shard top-k merge (stack_out=False — one all_gather) or
     per-shard stacked (S·B, k_out) candidate sets (stack_out=True — the
     host-tier dispatch-1 output, each shard's shortlist staying on its own
     device until the host gathers its rows).
@@ -103,9 +102,8 @@ def _sharded_pq_tiles_search(
             tw_l, ct_l, nv, loc_l, rm_l,
             k=k_core,
             k_cand=k_cand, p_tiles=p_tiles, tile_n=tile_n, tile_q=tile_q,
-            interpret=interpret, refine_scale=refine_scale,
-            row_major=segmented, n_pools=n_pools, l_buckets=l_buckets,
-            refine_residual=refine_residual, l2=l2, top2=top2,
+            refine_scale=refine_scale, row_major=segmented,
+            refine_residual=refine_residual, l2=l2,
         )
         if use_pq2:
             # tier-2 tables are staged in ARENA order → rescore by row
@@ -720,15 +718,12 @@ class ShardedBandIVFPQIndex(TunableMixin, RangeSearchMixin):
             k_out = k
         return two_stage, tier2, host, k_cand, n_pools, l_buckets, k_out
 
-    def search(self, queries, k: int, nprobe: int = 32,
-               interpret: bool | None = None, p_tiles: int = 0,
+    def search(self, queries, k: int, nprobe: int = 32, p_tiles: int = 0,
                refine_factor: int | None = None, n_pools: int = 0,
                tile_q: int | None = None, where=None,
                top2: bool | None = None, host_factor: int | None = None,
                **_):
         assert self._shards, "build() first"
-        if interpret is None:
-            interpret = jax.default_backend() != "tpu"
         queries = np.asarray(queries, np.float32)
         proto = self.proto
         if proto.opq_matrix is not None:
@@ -779,9 +774,8 @@ class ShardedBandIVFPQIndex(TunableMixin, RangeSearchMixin):
         flt_crc = (zlib.crc32(flt.mask_np.tobytes())
                    if flt is not None else 0)
         qg = stage_queries(qp, self.mesh,
-                           statics=(p_tiles, k, k_cand, k_out, n_pools,
-                                    l_buckets, int(interpret), flt_crc,
-                                    int(l2), int(top2), int(host)))
+                           statics=(p_tiles, k, k_cand, k_out, flt_crc,
+                                    int(l2), int(host)))
         stack_out = host
         if stack_out:
             assert "replica" not in self.mesh.axis_names, (
@@ -796,14 +790,12 @@ class ShardedBandIVFPQIndex(TunableMixin, RangeSearchMixin):
             st.get("s2") if tier2 and l2 else None,
             self._staged_row_mask(flt) if flt is not None else None,
             k=k, k_cand=k_cand, k_out=k_out, p_tiles=p_tiles,
-            tile_n=sh0.tile_n, tile_q=tq, interpret=interpret,
-            mesh=self.mesh,
+            tile_n=sh0.tile_n, tile_q=tq, mesh=self.mesh,
             refine_scale=(self._refine_scale if self.refine == "int8"
                           else 0.0),
-            segmented=bool(st["segmented"]), n_pools=n_pools,
-            l_buckets=l_buckets,
+            segmented=bool(st["segmented"]),
             refine_residual=(self.refine == "int8" and proto.residual),
-            l2=l2, top2=top2, use_pq2=tier2, stack_out=stack_out,
+            l2=l2, use_pq2=tier2, stack_out=stack_out,
         )
         if not stack_out:
             out_v = fetch_local(v)[:nq]
@@ -813,7 +805,7 @@ class ShardedBandIVFPQIndex(TunableMixin, RangeSearchMixin):
             return out_v, out_i
         # host tier dispatch 2: gather each shard's shortlist rows from its
         # own store, rescore exactly on the mesh, merge. Multi-process
-        # (r4 VERDICT item 5): each process fetches ONLY the dispatch-1
+        # each process fetches ONLY the dispatch-1
         # slices its devices hold (addressable_shards), gathers ONLY its
         # own shards' rows from its own host stores, and re-stages them
         # per-device (stage_row_sharded already skips remote shards) —
@@ -1019,7 +1011,7 @@ class ShardedBandIVFPQIndex(TunableMixin, RangeSearchMixin):
         return idx
 
     def _do_reshard(self, s_new: int) -> None:
-        """Elastic reshard (v5e-8 ↔ v5e-16 without a rebuild): codes move
+        """Elastic reshard (e.g. 8 ↔ 16 shards without a rebuild): codes move
         VERBATIM (shared quantizers), rows sort by global id and split
         contiguously, each new shard runs one native arena sort; the
         gid-keyed tier stores re-partition by arena membership."""

@@ -1,10 +1,10 @@
-"""Sharded IVF-PQ over a device mesh (BASELINE config #4: 100M×768d on v5e-8).
+"""Sharded IVF-PQ over a device mesh (BASELINE config #4: 100M×768d).
 
 Design: the coarse quantizer and PQ codebooks are trained ONCE on a global
 sample and replicated (they're tiny); the *rows* are partitioned across the
 'shard' axis, each shard holding its own list-sorted code arena in HBM. A
 query runs the probe-scan on every shard in parallel (shard_map), and the
-per-shard partial top-k is all-gathered over ICI and reduced — identical
+per-shard partial top-k is all-gathered and reduced — identical
 recall semantics to a single IVF-PQ index with the same nprobe, because every
 shard probes its own copy of the same global lists.
 """
@@ -328,7 +328,7 @@ class ShardedIVFPQIndex(TunableMixin, RangeSearchMixin):
         cap = max([8] + [sh._arena.max_list_len for sh in self._shards])
 
         # per-shard pieces go straight to their device — the dense host
-        # concat doubled host memory at scale (r1 VERDICT weak #8)
+        # concat doubled host memory at scale
         def codes_piece(si):
             ar = self._shards[si]._arena
             out = np.zeros((max_n, m), np.uint8)

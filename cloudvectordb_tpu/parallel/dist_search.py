@@ -1,13 +1,13 @@
 """Distributed query fan-out + top-k merge over a device mesh.
 
-BASELINE.json north_star: "Index shards live in TPU HBM across a mesh, with
-queries broadcast over ICI and per-shard partial top-k merged via all-gather."
+Index shards live in device memory across a mesh, queries are broadcast
+and the per-shard partial top-k merges via all-gather.
 
 Implementation: ``shard_map`` over the 'shard' axis — each device scans its
-row-partition with the local top-k kernel, partial (k) results are
-all-gathered over ICI (S·k·B floats, tiny) and reduced to the global top-k on
-every device. Developed on the 8-device simulated CPU mesh; identical code on
-a real v5e-8 (SURVEY.md §2.3, §4.2).
+row-partition with the exact tiled top-k, partial (k) results are
+all-gathered (S·k·B floats, tiny; NCCL over NVLink on a multi-GPU host)
+and reduced to the global top-k on every device. The same code runs on a
+simulated CPU mesh (SURVEY.md §2.3, §4.2).
 """
 
 from __future__ import annotations
@@ -25,8 +25,8 @@ from cloudvectordb_tpu.ops.topk import tiled_topk
 from cloudvectordb_tpu.parallel.mesh import make_mesh
 
 
-@functools.partial(jax.jit, static_argnames=("k", "metric", "mesh", "use_pallas"))
-def _dist_flat_search(queries, db_sharded, n_valid, *, k, metric, mesh, use_pallas):
+@functools.partial(jax.jit, static_argnames=("k", "metric", "mesh"))
+def _dist_flat_search(queries, db_sharded, n_valid, *, k, metric, mesh):
     """queries replicated, db row-sharded over 'shard'. Returns global top-k."""
     rows_per_shard = db_sharded.shape[0] // mesh.shape["shard"]
 
@@ -36,16 +36,11 @@ def _dist_flat_search(queries, db_sharded, n_valid, *, k, metric, mesh, use_pall
         # rows beyond n_valid are zero padding on the last shard; mask by
         # clamping the local count.
         local_n = jnp.clip(nv[0] - base, 0, rows_per_shard)
-        if use_pallas:
-            from cloudvectordb_tpu.ops.pallas_topk import flat_topk_pallas
-
-            v, i = flat_topk_pallas(db_local, q, k, metric=metric)
-        else:
-            v, i = tiled_topk(db_local, q, k, metric=metric,
-                              tile=min(8192, rows_per_shard))
+        v, i = tiled_topk(db_local, q, k, metric=metric,
+                          tile=min(8192, rows_per_shard))
         v = jnp.where(i < local_n, v, -jnp.inf)
         i = i + base
-        # fan-in: gather all shards' partial top-k over ICI
+        # fan-in: gather all shards' partial top-k
         all_v = lax.all_gather(v, "shard", axis=0)  # (S, B, k)
         all_i = lax.all_gather(i, "shard", axis=0)
         s, b, kk = all_v.shape
@@ -130,13 +125,11 @@ class DistributedFlatIndex:
         self._place(jnp.take(self._db[: self._n], kept_rows, axis=0))
         return n_rem
 
-    def search(self, queries, k: int, use_pallas: bool | None = None):
+    def search(self, queries, k: int):
         queries = jnp.asarray(queries, jnp.float32)
-        if use_pallas is None:
-            use_pallas = jax.default_backend() == "tpu" and self._n >= 8 * 2048
         v, i = _dist_flat_search(
             queries, self._db, jnp.array([self._n], jnp.int32),
-            k=k, metric=self.metric, mesh=self.mesh, use_pallas=use_pallas,
+            k=k, metric=self.metric, mesh=self.mesh,
         )
         i = np.asarray(i)
         if self._ids is not None:  # map positions → original ids

@@ -3,11 +3,12 @@
 Axes:
   'data'  — batch axis for training / encoding (DP);
   'shard' — database axis for the index (the vectordb analog of TP): index
-            rows live sharded across HBM, queries are broadcast over ICI.
+            rows live sharded across device memory, queries are broadcast.
 
-TP/PP for the encoder are deliberately absent: MiniLM-class models fit on one
-v5e chip; splitting them would add ICI latency for nothing (SURVEY.md §2.3,
-documented decision).
+Meshes take the visible devices in order: the cards of one host reach each
+other all to all over NVLink, so no torus shape matters. TP/PP for the
+encoder are deliberately absent: MiniLM-class models fit on one card
+(SURVEY.md §2.3, documented decision).
 """
 
 from __future__ import annotations
@@ -17,9 +18,10 @@ import numpy as np
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
 
-def make_mesh(n_devices: int | None = None, axis_name: str = "data") -> Mesh:
-    """1-D mesh over the first n visible devices."""
-    devs = jax.devices()
+def make_mesh(n_devices: int | None = None, axis_name: str = "data",
+              devices=None) -> Mesh:
+    """1-D mesh over the first n of ``devices`` (default: all visible)."""
+    devs = list(devices) if devices is not None else jax.devices()
     if n_devices is not None:
         devs = devs[:n_devices]
     return Mesh(np.array(devs), (axis_name,))
@@ -32,7 +34,8 @@ def init_multihost(coordinator: str | None = None, num_processes: int | None = N
 
     Wraps jax.distributed.initialize; after this, jax.devices() spans all
     hosts and the same make_mesh/shard_map code runs across slices (XLA
-    routes intra-slice collectives over ICI and inter-slice over DCN).
+    routes intra-host collectives over NVLink and inter-host over the
+    network).
     Returns the global device count. No-op when already initialized.
 
     cpu_collectives: set to "gloo" (or "mpi") to run cross-PROCESS
@@ -135,7 +138,7 @@ def stage_replicated(x, mesh: Mesh):
 
 def make_2d_mesh(n_replica: int, n_shard: int) -> Mesh:
     """('replica', 'shard') mesh for multi-slice serving: index rows sharded
-    within a slice (ICI), whole-index replicas across slices (DCN) — query
+    within a host, whole-index replicas across hosts — query
     traffic splits across replicas, each query fans out over its slice."""
     devs = np.array(jax.devices()[: n_replica * n_shard]).reshape(
         n_replica, n_shard

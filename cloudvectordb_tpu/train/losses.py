@@ -1,7 +1,7 @@
 """Contrastive losses for triplet-based encoder training (SURVEY.md §2.1).
 
-Both treat the in-batch structure TPU-first: the InfoNCE/MNRL similarity
-matrix is one (B, B+B) MXU matmul, no gather/scatter. Embeddings are assumed
+Both keep the in-batch structure dense: the InfoNCE/MNRL similarity
+matrix is one (B, B+B) matmul, no gather/scatter. Embeddings are assumed
 L2-normalized when temperature scaling is used (the encoder default).
 """
 
@@ -41,7 +41,7 @@ def uniformity_loss(x, t: float = 2.0):
     weight it keeps tiny from-scratch encoders from the degenerate optimum
     the pipeline's encode stage warns about (mean pairwise cosine ≈ 1).
     """
-    # gram-matrix identity: ‖xi−xj‖² = ‖xi‖² + ‖xj‖² − 2·xi·xj — one MXU
+    # gram-matrix identity: ‖xi−xj‖² = ‖xi‖² + ‖xj‖² − 2·xi·xj — one
     # matmul and an O(B²) tensor instead of the O(B²·D) broadcast
     # difference (~200 MB + its cotangent at B=256, D=768)
     x2 = jnp.sum(x * x, axis=1)

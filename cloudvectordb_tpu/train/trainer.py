@@ -2,8 +2,9 @@
 
 One jitted train step under a 1-D 'data' mesh: the (anchor, positive,
 negative) token batches are sharded on the batch axis, params replicated;
-XLA inserts the gradient all-reduce over ICI. The three encoder forwards run
-as ONE forward on the stacked 3B batch (bigger MXU tiles, one weight read).
+XLA inserts the gradient all-reduce (NCCL on a multi-GPU host). The three
+encoder forwards run as ONE forward on the stacked 3B batch (bigger
+matmuls, one weight read).
 
 Checkpoints carry params + opt state + step + RNG + data cursor so training
 resumes exactly (SURVEY.md §5.4).
@@ -11,10 +12,11 @@ resumes exactly (SURVEY.md §5.4).
 
 from __future__ import annotations
 
+import dataclasses
+import functools
 import time
 from typing import Iterator
 
-import flax.struct
 import jax
 import jax.numpy as jnp
 import optax
@@ -29,7 +31,14 @@ from cloudvectordb_tpu.utils.metrics import MetricsWriter, get_logger
 log = get_logger("cvdb.train")
 
 
-class TrainState(flax.struct.PyTreeNode):
+@functools.partial(jax.tree_util.register_dataclass,
+                   data_fields=["params", "opt_state", "step", "rng"],
+                   meta_fields=[])
+@dataclasses.dataclass(frozen=True)
+class TrainState:
+    """Registered pytree; its treedef string matches the flax PyTreeNode
+    it replaced, so existing checkpoints restore."""
+
     params: dict
     opt_state: optax.OptState
     step: jnp.ndarray
@@ -66,10 +75,8 @@ class Trainer:
             params=params,
             opt_state=self.tx.init(params),
             step=jnp.zeros((), jnp.int32),
-            # rbg (default) drives the TPU hardware RNG for dropout masks —
-            # threefry bit generation alone cost 16% of the MiniLM step
-            # (utils/config.py::TrainConfig.rng_impl). Stored as RAW key
-            # data (uint32) so checkpoints stay plain arrays; the step
+            # dropout-mask RNG under TrainConfig.rng_impl. Stored as RAW
+            # key data (uint32) so checkpoints stay plain arrays; the step
             # re-wraps it under the configured impl.
             rng=jax.random.key_data(
                 jax.random.key(seed, impl=self.cfg.rng_impl)),

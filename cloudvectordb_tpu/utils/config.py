@@ -91,21 +91,17 @@ class EncoderConfig(_ConfigBase):
     dropout: float = 0.1
     # attention-probs dropout (HF BERT's attention_probs_dropout_prob).
     # None → follow `dropout`. Its mask is the model's LARGEST tensor
-    # (B·heads·L² — 4.6× the hidden states at L=128) and costs ~25% of the
-    # TPU train step (measured: 378→317→~250 ms/step with rbg RNG and
-    # attn_dropout=0); set 0.0 when the contrastive recipe tolerates it.
+    # (B·heads·L² — 4.6× the hidden states at L=128); set 0.0 when the
+    # contrastive recipe tolerates it (it also unlocks the cuDNN path).
     attn_dropout: float | None = None
-    # attention implementation: 'auto' picks the PACKED small-head Pallas
-    # kernel (ops/pallas_attn.py — heads in the lane dim, per-sequence
-    # scores never leave VMEM) whenever it applies (TPU, attn_dropout=0 or
-    # deterministic, L%128==0, L≤512), falling back to 'naive' (the
-    # materialized-logits XLA path). 'packed'/'fused'/'naive' force a
-    # specific path; 'fused' (the stock flash kernel) only wins at
-    # head_dim ≥ 128 (measured — models/encoder.py::_attn_dispatch).
+    # attention implementation: 'naive' (materialized-logits XLA path, the
+    # only one with attention-probs dropout), 'cudnn' (cuDNN fused
+    # attention, GPU only) or 'auto' (models/encoder.py::attn_dispatch:
+    # on the GPU without probs dropout, the faster of the two on the card).
     attn_impl: str = "auto"
     pooling: str = "mean"          # mean | cls
     normalize: bool = True         # L2-normalize sentence embeddings
-    dtype: str = "bfloat16"        # activation dtype on TPU (params stay f32)
+    dtype: str = "bfloat16"        # activation dtype (params stay f32)
     out_dim: int = 0               # 0 → hidden_dim; else linear projection head
     remat: bool = False            # rematerialize layers (trade FLOPs for HBM)
 
@@ -115,7 +111,8 @@ class TrainConfig(_ConfigBase):
     """Contrastive training (SURVEY.md §2.1 Trainer)."""
 
     encoder: EncoderConfig = field(default_factory=EncoderConfig)
-    encoder_preset: str = ""       # named preset (models/presets.py) overrides encoder
+    encoder_preset: str = ""       # named preset (models/presets.py) sets the
+                                   # encoder widths; max_len stays encoder.max_len
     loss: str = "infonce"          # infonce | triplet
     temperature: float = 0.1      # InfoNCE temperature (0.05 collapses
                                   # tiny from-scratch encoders — measured)
@@ -128,10 +125,9 @@ class TrainConfig(_ConfigBase):
     weight_decay: float = 0.01
     grad_accum: int = 1
     seed: int = 0
-    # PRNG implementation for the train-step RNG (dropout masks).
-    # 'rbg' drives the TPU hardware RNG: threefry mask generation measured
-    # 16% of the MiniLM step time (378→317 ms at B=512·3, L=128) with
-    # identical mask distribution; 'threefry2x32' restores the JAX default.
+    # PRNG implementation for the train-step RNG (dropout masks): 'rbg'
+    # (XLA's RngBitGenerator) or 'threefry2x32' (the JAX default). Which is
+    # faster on the H100 is not measured.
     rng_impl: str = "rbg"
     ckpt_every: int = 200
     ckpt_dir: str = "artifacts/ckpt"

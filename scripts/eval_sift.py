@@ -51,7 +51,7 @@ def main():
 
     # config #1: exact brute-force sanity
     flat = FlatIndex.build(base, metric=args.metric)
-    _, i_flat = flat.search(queries, args.k, exact=True)
+    _, i_flat = flat.search(queries, args.k)
     print(f"exact recall@{args.k}: {recall_at_k(i_flat, gt):.4f} (must be 1.0)")
 
     # config #2 shape: IVF-Flat nprobe sweep

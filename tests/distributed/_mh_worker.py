@@ -2,7 +2,7 @@
 
 Launched by test_multihost.py (N processes over TCP, gloo collectives,
 M simulated CPU devices each — the executable stand-in for N hosts of an
-N×M TPU slice). Builds the sharded serving index, searches, and dumps the
+N×M-device cluster). Builds the sharded serving index, searches, and dumps the
 result ids for the parent test to compare against the single-process mesh.
 
 Not a pytest module (underscore prefix keeps it out of collection).
@@ -72,7 +72,7 @@ def main() -> None:
     _, ids3 = pq.search(q, 5, nprobe=8)
     np.save(os.path.join(outdir, f"pq_{pid}.npy"), ids3)
 
-    # (e) config-#5 host-tier CASCADE across processes (r4 VERDICT item 5):
+    # (e) config-#5 host-tier CASCADE across processes:
     # dispatch-1 stacked shortlists stay per-device, each process gathers
     # ONLY its own shards' rows from its own host stores, and dispatch-2's
     # merge all_gather crosses the process boundary.

@@ -1,6 +1,6 @@
 """Distributed query fan-out/merge on the 8-device simulated mesh (SURVEY §4.2).
 
-The same shard_map code runs on a real v5e-8; only the devices differ.
+The same shard_map code runs on real cards; only the devices differ.
 """
 
 import jax

@@ -1,7 +1,6 @@
 """Multi-host DCN path, EXECUTED: 2 OS processes × 4 simulated devices over
 TCP (jax.distributed + gloo CPU collectives) — the runnable stand-in for a
-2-host v5e slice this one-chip environment cannot provide (SURVEY §2.3
-multi-host row; r2 VERDICT called the path 'never executed anywhere').
+2-host cluster (SURVEY §2.3 multi-host row).
 
 What actually crosses the process boundary:
 - staging: make_array_from_single_device_arrays assembles the row-sharded

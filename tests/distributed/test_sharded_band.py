@@ -33,7 +33,7 @@ def test_sharded_band_recall_and_ids():
 
 
 def test_sharded_band_parity_with_single_index():
-    """Merge-correctness (r2: VERDICT item 8): at full tile coverage both the
+    """Merge-correctness: at full tile coverage both the
     sharded and single-device index are exact int8 scans of the same rows
     under the same quantizer. Sharded recall may legitimately EXCEED the
     single index (each shard keeps its own bucketed-merge pool → 8× fewer
@@ -52,7 +52,7 @@ def test_sharded_band_parity_with_single_index():
     st = sharded._device_state()
     _, i_sh = sharded.search(q, 10, p_tiles=st["n_tiles"])
     _, i_si = single.search(
-        q, 10, interpret=True, strategy="tiles",
+        q, 10, interpret=True,
         p_tiles=single._payload.shape[0] // single.tile_n,
     )
     r_sh, r_si = recall_at_k(i_sh, gt), recall_at_k(i_si, gt)
@@ -94,7 +94,7 @@ def test_sharded_band_residual_mode():
     res = ShardedBandIndex.build(db, nlist=16, mesh=mesh, residual=True, **kw)
     row = ShardedBandIndex.build(db, nlist=16, mesh=mesh, **kw)
     st = res._device_state()
-    assert "local" in st and "centroid_tiles" in st
+    assert "local" in st and "valid_end" in st
     _, i_res = res.search(q, 10, p_tiles=st["n_tiles"])
     _, i_row = row.search(q, 10, p_tiles=st["n_tiles"])
     r_res, r_row = recall_at_k(i_res, gt), recall_at_k(i_row, gt)
@@ -121,7 +121,7 @@ def test_sharded_band_filtered_search():
     v_sh, i_sh = sharded.search(q, 10, p_tiles=st["n_tiles"], where=mask)
     assert mask[i_sh[i_sh >= 0]].all(), "disallowed id crossed the merge"
     _, i_si = single.search(
-        q, 10, interpret=True, strategy="tiles",
+        q, 10, interpret=True,
         p_tiles=single._payload.shape[0] // single.tile_n, where=mask)
     _, gt_all = brute_force_topk(db[mask], q, 10, metric="ip")
     gids = np.flatnonzero(mask)

@@ -1,4 +1,4 @@
-"""ShardedBandIVFPQIndex — the sharded config-#5 family (r4 VERDICT item 1)
+"""ShardedBandIVFPQIndex — the sharded config-#5 family
 on the 8-device simulated mesh: parity vs the single index (shared
 quantizers by construction), every refine tier (pq2 in-HBM, host exact,
 the pq2+host cascade), save→load→search parity, elastic reshard, adds/
@@ -202,7 +202,7 @@ def test_sharded_pq_l2_metric(data):
     _, f1 = single.search(q, 10, p_tiles=single._n_pad_rows // KW["tile_n"],
                           refine_factor=16)
     r1 = recall_at_k(f1, gt_l2)  # absolute level is the documented l2
-    # serve_from='pq' candidate-key noise at toy codebooks (ROUND3.md)
+    # serve_from='pq' candidate-key noise at toy codebooks
     for refine, extra in (("pq2", {}), ("pq2+host", {"host_factor": 8})):
         idx = ShardedBandIVFPQIndex.build(
             db, mesh=mesh, refine=refine, m2=16, metric="l2", **KW)

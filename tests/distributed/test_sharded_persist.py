@@ -134,7 +134,7 @@ def test_sharded_tune_and_op_point_roundtrip(tmp_path):
 
 def test_sharded_band_elastic_reshard(tmp_path):
     """r3: loading onto a mesh with a different 'shard' extent re-partitions
-    rows host-side (v5e-8 ↔ v5e-16 elasticity without a rebuild). At full
+    rows host-side (8 ↔ 16 shards without a rebuild). At full
     tile coverage the searches are exactly equal: payloads move verbatim,
     requantized to the same global scale staging always used."""
     db = clustered_vectors(4096, 64, n_clusters=32, seed=212, normalize=True)

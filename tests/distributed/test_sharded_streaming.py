@@ -1,4 +1,4 @@
-"""Streaming sharded builds (r2: VERDICT item 5): 8-shard indexes built from
+"""Streaming sharded builds: 8-shard indexes built from
 a chunk GENERATOR — the f32 corpus never materializes on the host — must
 match the materialized builders' recall."""
 

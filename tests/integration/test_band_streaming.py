@@ -73,7 +73,7 @@ def test_build_device_streaming_matches_build():
     )
     assert idx.ntotal == 4096
     p_all = idx._payload.shape[0] // idx.tile_n
-    _, found = idx.search(q, 10, interpret=True, strategy="tiles", p_tiles=p_all)
+    _, found = idx.search(q, 10, interpret=True, p_tiles=p_all)
     r = recall_at_k(found, gt)
     assert r >= 0.85, r
     # added rows from the LSM path still work on a device-resident arena? not

@@ -34,7 +34,7 @@ def test_streaming_flat_matches_bulk():
     assert total == len(corpus) == idx.ntotal
     q = emb[:8]
     _, gt = brute_force_topk(emb, q, 5, metric="ip")
-    _, found = idx.search(q, 5, exact=True)
+    _, found = idx.search(q, 5)
     assert recall_at_k(found, gt) == 1.0
 
 

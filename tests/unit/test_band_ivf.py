@@ -43,13 +43,13 @@ def test_tiles_strategy_recall(data, dtype):
         db, nlist=32, dtype=dtype, kmeans_iters=6, tile_n=256, tile_q=16
     )
     # all tiles selected → equals full scan (merge/quant-limited)
-    _, found = idx.search(q, 10, interpret=True, strategy="tiles",
+    _, found = idx.search(q, 10, interpret=True,
                           p_tiles=idx._payload.shape[0] // idx.tile_n)
     r_full = recall_at_k(found, gt)
     floor = 0.9 if dtype == "float32" else 0.85
     assert r_full >= floor, r_full
     # pruned tile set still recalls well on clustered data
-    _, found_p = idx.search(q, 10, nprobe=8, interpret=True, strategy="tiles")
+    _, found_p = idx.search(q, 10, nprobe=8, interpret=True)
     r_p = recall_at_k(found_p, gt)
     assert r_p >= r_full - 0.15, (r_p, r_full)
 
@@ -134,7 +134,7 @@ def test_band_pq_opq(data, tmp_path):
     np.testing.assert_array_equal(found, f2)
 
 
-# -- LSM incremental adds (r2: VERDICT item 2 / BASELINE "incremental") ----
+# -- LSM incremental adds (BASELINE "incremental") ------------------------
 
 def test_band_add_pending_then_merge(data):
     """add() is searchable immediately (pending scan), matches bulk rebuild
@@ -149,7 +149,7 @@ def test_band_add_pending_then_merge(data):
     # added rows are found as their own nearest neighbor (exact pending scan
     # or arena scan post-merge)
     qa = extra[:32]
-    _, found = idx.search(qa, 1, interpret=True, strategy="tiles",
+    _, found = idx.search(qa, 1, interpret=True,
                           p_tiles=idx._payload.shape[0] // idx.tile_n)
     self_ids = 3000 + np.arange(32)
     hit = (found[:, 0] == self_ids).mean()
@@ -157,18 +157,18 @@ def test_band_add_pending_then_merge(data):
     # recall on the union matches a bulk-built index (same quantizer family)
     from cloudvectordb_tpu.eval.recall import brute_force_topk, recall_at_k
     _, gt = brute_force_topk(db, q, 10, metric="ip")
-    _, f_inc = idx.search(q, 10, interpret=True, strategy="tiles",
+    _, f_inc = idx.search(q, 10, interpret=True,
                           p_tiles=idx._payload.shape[0] // idx.tile_n)
     bulk = BandIVFIndex.build(db, nlist=16, dtype="int8", kmeans_iters=5,
                               tile_n=256, tile_q=16)
-    _, f_bulk = bulk.search(q, 10, interpret=True, strategy="tiles",
+    _, f_bulk = bulk.search(q, 10, interpret=True,
                             p_tiles=bulk._payload.shape[0] // bulk.tile_n)
     r_inc, r_bulk = recall_at_k(f_inc, gt), recall_at_k(f_bulk, gt)
     assert r_inc >= r_bulk - 0.03, (r_inc, r_bulk)
     # forced merge drains pending and preserves results
     idx.merge_pending()
     assert idx._pending.size == 0 and idx._n == db.shape[0]
-    _, f_merged = idx.search(q, 10, interpret=True, strategy="tiles",
+    _, f_merged = idx.search(q, 10, interpret=True,
                              p_tiles=idx._payload.shape[0] // idx.tile_n)
     assert recall_at_k(f_merged, gt) >= r_bulk - 0.03
 
@@ -234,9 +234,9 @@ def test_band_add_save_load_merges(data, tmp_path):
     idx.save(tmp_path / "lsm")
     idx2 = load_index(tmp_path / "lsm")
     assert idx2.ntotal == db.shape[0]
-    v1, i1 = idx.search(q, 5, interpret=True, strategy="tiles",
+    v1, i1 = idx.search(q, 5, interpret=True,
                         p_tiles=idx._payload.shape[0] // idx.tile_n)
-    v2, i2 = idx2.search(q, 5, interpret=True, strategy="tiles",
+    v2, i2 = idx2.search(q, 5, interpret=True,
                          p_tiles=idx2._payload.shape[0] // idx2.tile_n)
     np.testing.assert_array_equal(i1, i2)
 
@@ -252,8 +252,8 @@ def test_residual_int8_beats_row_int8(data):
     res = BandIVFIndex.build(db, residual=True, **kw)
     assert res._scale < row._scale, (res._scale, row._scale)
     p_all = row._payload.shape[0] // row.tile_n
-    _, f_row = row.search(q, 10, interpret=True, strategy="tiles", p_tiles=p_all)
-    _, f_res = res.search(q, 10, interpret=True, strategy="tiles", p_tiles=p_all)
+    _, f_row = row.search(q, 10, interpret=True, p_tiles=p_all)
+    _, f_res = res.search(q, 10, interpret=True, p_tiles=p_all)
     r_row = recall_at_k(f_row, gt)
     r_res = recall_at_k(f_res, gt)
     assert r_res >= r_row - 0.01, (r_res, r_row)
@@ -270,11 +270,11 @@ def test_residual_int8_add_merge_save_load(data, tmp_path):
         idx.add(db[s : s + 500])
     assert idx.ntotal == db.shape[0]
     qa = db[3500:3532]
-    _, found = idx.search(qa, 1, interpret=True, strategy="tiles",
+    _, found = idx.search(qa, 1, interpret=True,
                           p_tiles=idx._payload.shape[0] // idx.tile_n)
     assert (found[:, 0] == 3500 + np.arange(32)).mean() >= 0.9
     idx.merge_pending()
-    _, f = idx.search(q, 10, interpret=True, strategy="tiles",
+    _, f = idx.search(q, 10, interpret=True,
                       p_tiles=idx._payload.shape[0] // idx.tile_n)
     assert recall_at_k(f, gt) >= 0.9
     # reconstruct returns near-exact rows (residual dequant + centroid)
@@ -284,9 +284,9 @@ def test_residual_int8_add_merge_save_load(data, tmp_path):
     assert cos.min() > 0.99, cos.min()
     idx.save(tmp_path / "resid")
     idx2 = load_index(tmp_path / "resid")
-    assert idx2._resid8 and idx2._centroid_tiles is not None
-    v1, i1 = idx.search(q, 5, interpret=True, strategy="tiles", p_tiles=4)
-    v2, i2 = idx2.search(q, 5, interpret=True, strategy="tiles", p_tiles=4)
+    assert idx2._resid8 and idx2._valid_end is not None
+    v1, i1 = idx.search(q, 5, interpret=True, p_tiles=4)
+    v2, i2 = idx2.search(q, 5, interpret=True, p_tiles=4)
     np.testing.assert_array_equal(i1, i2)
 
 
@@ -300,13 +300,13 @@ def test_residual_int8_device_streaming(data):
         kmeans_iters=6, tile_n=256, tile_q=16,
     )
     assert idx._resid8 and idx.ntotal == 4000
-    _, f = idx.search(q, 10, interpret=True, strategy="tiles",
+    _, f = idx.search(q, 10, interpret=True,
                       p_tiles=idx._payload.shape[0] // idx.tile_n)
     assert recall_at_k(f, gt) >= 0.9
 
 
 def test_device_annex_fold(data):
-    """r3 (VERDICT item 6): threshold-triggered folds on a DEVICE-resident
+    """Threshold-triggered folds on a DEVICE-resident
     arena go to the device annex (_fold_pending), never round-tripping the
     payload through the host. Annexed rows stay exactly searchable, the
     arena buffer object is untouched, and merge_pending() compacting the
@@ -501,7 +501,7 @@ def test_pq2_host_device_streaming(data):
 
 
 def test_inplace_device_merge(data):
-    """r4 (VERDICT item 5): a device-resident compact int8 arena built with
+    """A device-resident compact int8 arena built with
     merge_headroom folds pending adds IN PLACE — same buffer (capacity
     unchanged), zero payload fetch, results identical to the host-merge
     path on the same rows."""
@@ -579,7 +579,7 @@ def test_inplace_device_merge_multiple_rounds(data):
 
 
 def test_pq2_host_cascade(data, tmp_path):
-    """r4 (VERDICT item 2): refine='pq2+host' — the tier-2 ADC narrows the
+    """refine='pq2+host' — the tier-2 ADC narrows the
     kernel's k_cand candidate set ON-CHIP to a k·host_factor shortlist and
     only the survivors' rows cross to the host rescore. At matched k_cand
     the cascade must (a) carry both tiers through build/save/load/add, (b)
@@ -605,7 +605,7 @@ def test_pq2_host_cascade(data, tmp_path):
     assert rc >= r2, (r2, rc)          # exact host tail ≥ tier-2 ranking
     assert rc >= rh - 0.02, (rh, rc)   # 2.7× narrower shortlist, same recall
     # (at real scale — m2=32, 8-bit, 768-d — tier-2 ranks far better and
-    # the measured narrowing is ~8–13× at equal recall; see ROUND4.md)
+    # the measured narrowing is ~8–13× at equal recall)
     # a wide-open shortlist (host_factor ≥ refine_factor) IS the host tier
     _, fw = casc.search(q, 10, host_factor=16, **skw)
     assert recall_at_k(fw, gt) >= rh - 0.01
@@ -845,7 +845,7 @@ def test_search_tile_q_override(data):
 def test_pq_segmented_arena_parity(data):
     """Row-major code arenas past seg_rows_cap split into segments, each
     dispatched separately with a filtered tile table and a maskable pad
-    tile (Mosaic's DMA limit on 64-lane inputs — class doc). With identical
+    tile (seg_rows_cap — class doc). With identical
     quantizers, segmented search must match the single-arena results at
     full coverage (candidate pools can only widen)."""
     import jax.numpy as jnp

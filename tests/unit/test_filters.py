@@ -209,11 +209,9 @@ def test_filter_pq_family_refine_scan(data):
 
 
 def test_filter_pq_family_bucketed_merge(data):
-    """Masked PQ kernel with rows_per_bucket > 1 (l_buckets < tile_n): the
-    per-row cutoff vector must fold in the 2-D (Q, T) domain — reshaping
-    the (T,) cutoff to (1, R, L) is a vector shape cast Mosaic rejects for
-    L > 128 on v5e (caught on-chip at tile_n=1024/l_buckets=256; this
-    pins the restructured branch's semantics at R=2)."""
+    """Masked PQ search at a k_cand below tile_n (the op point that once
+    meant two rows per bucket): the filter must hold and recall must match
+    the oracle restricted to allowed rows."""
     from cloudvectordb_tpu.index.ivf_band import BandIVFPQIndex
 
     db, q = data
@@ -229,7 +227,7 @@ def test_filter_pq_family_bucketed_merge(data):
     v, f = idx.search(q, 10, interpret=True, p_tiles=n_tiles,
                       serve_from="pq", refine_factor=10, n_pools=1,
                       where=mask)
-    assert mask[f[f >= 0]].all(), "bucketed masked merge leaked an id"
+    assert mask[f[f >= 0]].all(), "masked PQ scan leaked an id"
     assert recall_at_k(f, gt_f) >= 0.85
     # unmasked same op point still agrees with the unrestricted oracle
     gt_u = _oracle_filtered(db, q, 10, np.ones(db.shape[0], bool))

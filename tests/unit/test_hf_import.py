@@ -1,4 +1,4 @@
-"""Numerical parity: flax Encoder with imported weights ≡ torch BertModel.
+"""Numerical parity: Encoder with imported weights ≡ torch BertModel.
 
 Uses a randomly-initialized BertModel (no network / no pretrained weights
 needed) — if the weight mapping is right, mean-pooled outputs must match.

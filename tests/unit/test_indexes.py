@@ -36,14 +36,14 @@ def data():
 def test_flat_exact(data, metric):
     db, q, gt = data
     idx = FlatIndex.build(db, metric=metric)
-    s, i = idx.search(q, K, exact=True)
+    s, i = idx.search(q, K)
     assert recall_at_k(i, gt[metric]) == 1.0
 
 
 def test_flat_int8_high_recall(data):
     db, q, gt = data
     idx = FlatIndex.build(db, metric="ip", dtype="int8")
-    _, i = idx.search(q, K, exact=True)
+    _, i = idx.search(q, K)
     assert recall_at_k(i, gt["ip"]) >= 0.9
 
 

@@ -108,16 +108,16 @@ def test_band_family_subset_and_self_hit(rng):
 
 
 def test_band_candidate_ceiling_warning(rng):
-    """A radius ball denser than the band kernel's per-query candidate pool
-    (l_buckets = tile_n: slot-max surfaces at most one candidate per bucket)
-    cannot be fully returned; range_search must stop escalating at the pool
-    width and warn, instead of looping on a k the kernel silently clamps."""
+    """A radius ball denser than the rows the tile plan scans (p_tiles ·
+    tile_n) cannot be fully returned; range_search must stop escalating at
+    that width and warn, instead of looping on a k the scan clamps."""
     db, q = _mkdata(rng, n=1024, nq=4)
     idx = BandIVFIndex.build(db, nlist=8, dtype="int8", tile_n=64, tile_q=4,
                              kmeans_iters=3)
     with pytest.warns(UserWarning, match="candidate-pool ceiling"):
-        lims, _, _ = idx.range_search(q, -1.0, k_start=8)  # every row hits
-    assert (np.diff(lims) == 64).all()  # exactly the pool width per query
+        lims, _, _ = idx.range_search(q, -1.0, k_start=8,
+                                      p_tiles=2)  # every row hits
+    assert (np.diff(lims) == 128).all()  # exactly the scanned rows
 
 
 def test_empty_and_no_hits(rng):

@@ -51,7 +51,7 @@ def test_flat_remove_exact(data):
     assert idx.remove(removed) == removed.size
     assert idx.ntotal == 4000 - removed.size
     gt = _surviving_gt(db, q, removed)
-    _, found = idx.search(q, 10, exact=True)
+    _, found = idx.search(q, 10)
     _assert_no_removed(found, removed)
     assert recall_at_k(found, gt) == 1.0  # exact index, exact semantics
     # unknown / already-removed ids are ignored
@@ -65,7 +65,7 @@ def test_flat_remove_then_add_never_reuses_ids(data):
     idx.remove([99, 50])
     idx.add(db[100:110])
     # new rows got ids 100..109 (not 50/99 recycled)
-    _, found = idx.search(db[105:106], 1, exact=True)
+    _, found = idx.search(db[105:106], 1)
     assert found[0, 0] == 105
     r = idx.reconstruct([105])
     np.testing.assert_allclose(r[0], db[105], rtol=1e-5)
@@ -82,11 +82,11 @@ def test_flat_remove_save_load(tmp_path, data):
 
     idx2 = load_index(tmp_path / "flat")
     assert idx2.ntotal == idx.ntotal
-    _, f1 = idx.search(q, 5, exact=True)
-    _, f2 = idx2.search(q, 5, exact=True)
+    _, f1 = idx.search(q, 5)
+    _, f2 = idx2.search(q, 5)
     np.testing.assert_array_equal(f1, f2)
     idx2.add(db[200:210])  # allocation resumes past the original ids
-    _, found = idx2.search(db[205:206], 1, exact=True)
+    _, found = idx2.search(db[205:206], 1)
     assert found[0, 0] == 205
 
 

@@ -1,4 +1,4 @@
-"""ops.topk (XLA scan) and ops.pallas_topk vs the numpy oracle."""
+"""ops.topk (XLA scan) vs the numpy oracle."""
 
 import numpy as np
 import pytest
@@ -6,7 +6,6 @@ import pytest
 from cloudvectordb_tpu.data.synthetic import clustered_vectors, queries_from
 from cloudvectordb_tpu.eval.recall import brute_force_topk, recall_at_k
 from cloudvectordb_tpu.ops.topk import tiled_topk
-from cloudvectordb_tpu.ops.pallas_topk import flat_topk_pallas
 
 
 @pytest.mark.parametrize("metric", ["ip", "l2"])
@@ -24,52 +23,5 @@ def test_tiled_topk_approx_high_recall():
     db = clustered_vectors(4096, 64, seed=6)
     q = queries_from(db, 32, seed=7)
     s, i = tiled_topk(db, q, 10, metric="ip", tile=1024, approx=True)
-    _, i_true = brute_force_topk(db, q, 10, metric="ip")
-    assert recall_at_k(np.asarray(i), i_true) >= 0.9
-
-
-@pytest.mark.parametrize("metric", ["ip", "l2"])
-def test_pallas_topk_interpret(metric):
-    # interpret=True runs the kernel logic on CPU (SURVEY.md §4.2)
-    db = clustered_vectors(3000, 48, seed=8)
-    q = queries_from(db, 24, seed=9)
-    s, i = flat_topk_pallas(
-        db, q, 10, metric=metric, tile_n=512, tile_q=32, l_buckets=512, interpret=True
-    )
-    s_true, i_true = brute_force_topk(db, q, 10, metric=metric)
-    # bucketed merge: expected recall ≈ 1 - (k-1)/(2L) ≈ 0.991; assert ≥0.9
-    r = recall_at_k(np.asarray(i), i_true)
-    assert r >= 0.9, r
-    # scores of correctly-found ids must match the oracle
-    found = np.asarray(i)
-    sv = np.asarray(s)
-    for row in range(found.shape[0]):
-        for col in range(found.shape[1]):
-            if found[row, col] in set(i_true[row].tolist()):
-                true_col = list(i_true[row]).index(found[row, col])
-                np.testing.assert_allclose(
-                    sv[row, col], s_true[row, true_col], rtol=2e-3, atol=2e-3
-                )
-
-
-def test_pallas_topk_bucket_collision_bound():
-    # with L == tile and tiny k the merge should be exact on separated data
-    db = clustered_vectors(1024, 32, n_clusters=8, seed=10)
-    q = queries_from(db, 8, seed=11)
-    s, i = flat_topk_pallas(
-        db, q, 1, metric="ip", tile_n=512, tile_q=8, l_buckets=512, interpret=True
-    )
-    _, i_true = brute_force_topk(db, q, 1, metric="ip")
-    assert recall_at_k(np.asarray(i), i_true) == 1.0
-
-
-def test_pallas_topk_precision_knob_interpret():
-    # precision='highest' must thread through (interpret mode computes f32
-    # either way — this guards the static-arg plumbing and tile_q clamp)
-    db = clustered_vectors(2000, 48, seed=18)
-    q = queries_from(db, 16, seed=19)
-    s, i = flat_topk_pallas(db, q, 10, tile_n=512, tile_q=256,
-                            l_buckets=512, interpret=True,
-                            precision="highest")
     _, i_true = brute_force_topk(db, q, 10, metric="ip")
     assert recall_at_k(np.asarray(i), i_true) >= 0.9

@@ -1,4 +1,4 @@
-"""Op-point auto-tuner (eval/tune.py, r3 VERDICT item 5): tune() finds the
+"""Op-point auto-tuner (eval/tune.py): tune() finds the
 cheapest config meeting the recall target, search() serves it by default,
 and the op point survives save/load through the manifest."""
 
